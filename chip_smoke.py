@@ -18,12 +18,34 @@ Phases, each of which raises on failure (exit code != 0):
    launches per forward, and a forward must match ``execute_oracle``;
 5. window path — the cnn8 forward with ``block="window"`` and the
    densenet40 forward (policy auto) against ``execute_oracle``;
-6. a ``{"kernels": [...]}`` line: per kernel its launches, error, time
-   at the main path's shapes, the plain version's time, the least time
-   the card could take (its bound) and ``F.conv2d``'s time;
+6. sdk times at the main path's shapes;
+7. transformer kernels vs plain — tetris_matmul, grouped_matmul and
+   flash_attention against their plain versions at the shapes of the
+   transformer path and at ragged tails, causal or not, with a
+   ``q_offset`` and a GQA case; the attention stage at lengths that do
+   not tile by 128 (whisper's 1500-frame window, 136) must launch the
+   kernel once and match its plain form;
+8. transformer path — ``serve`` (policy auto) of stablelm-1.6b (24
+   blocks, seq 512, batch 4) and of the whisper-base encoder (6 blocks,
+   seq 1024, batch 4) at full width, each with every launch count set to
+   0 just before and read just after: every layer must run on
+   ``matmul``, the kernels' launches must equal the forwards times their
+   launches per forward, and a forward must match ``execute_oracle``
+   (plain functions only); one forward under ``torch.profiler`` gives
+   its device time beside the serving loop's wall time;
+9. transformer kernel times: device time with the stream held, per-call
+   time, the plain version's, the bound and the library call's
+   (``torch.matmul``, ``torch.bmm``, ``F.scaled_dot_product_attention``,
+   timed as yardsticks only);
+10. a ``{"kernels": [...]}`` line: per kernel its launches, error, time
+    at its path's shapes, the plain version's time, the least time the
+    card could take (its bound) and the library call's time;
 
 then the card line and, last, ``{"ok": true, "device": {...}}``.  The
 script needs the checkout beside it (``src/``) and a CUDA device.
+Matmuls and convolutions run in full f32: TF32 is switched off for
+cuBLAS and cuDNN (``allow_tf32 = False``), for the library yardsticks
+too.
 """
 from __future__ import annotations
 
@@ -50,6 +72,15 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 WHOLE_SITE = "src/repro/kernels/im2win_conv.py:380"
 WINDOW_SITE = "src/repro/kernels/im2win_conv.py:354"
+TETRIS_SITE = "src/repro/kernels/tetris_matmul.py:105"
+GROUPED_SITE = "src/repro/kernels/grouped_matmul.py:40"
+FLASH_SITE = "src/repro/kernels/flash_attention.py:86"
+#: the transformer path: (config, seq, batch), full width and depth
+TRANSFORMERS = (("stablelm_1_6b", 512, 4), ("whisper_base", 1024, 4))
+TF_WARMUP, TF_STEPS = 1, 20
+#: ragged attention-stage lengths per model: whisper's real 30 s window
+#: (1500 frames) and a length just past one 128 block
+RAGGED_SEQ = {"whisper_base": 1500, "stablelm_1_6b": 136}
 
 
 def card_line() -> str:
@@ -145,6 +176,343 @@ def max_err(y, ref) -> tuple:
     scale = float(ref.abs().max())
     err = float((y - ref).abs().max())
     return err, err / max(scale, 1e-30), scale
+
+
+def randn(rng, shape, device, scale=1.0):
+    import torch
+    return torch.as_tensor((rng.randn(*shape) * scale).astype("float32"),
+                           device=device)
+
+
+def bound_ms(flops: float, nbytes: float) -> tuple:
+    """(ms, "bytes" | "operations"): f32 FLOPs at the f32 peak or bytes
+    at the memory rate, whichever takes longer."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def attention_work(bh, sq, sk, d, causal, q_offset=0) -> tuple:
+    """(FLOPs, bytes) attention needs: 4*D FLOPs per visible (query, key)
+    pair — the causal mask hides the rest — and q, k, v, out once."""
+    if causal:
+        pairs = sum(min(sk, q_offset + i + 1) for i in range(sq))
+    else:
+        pairs = sq * sk
+    return 4.0 * d * pairs * bh, 4.0 * bh * d * (2 * sq + 2 * sk)
+
+
+def block_shapes(plan, batch: int):
+    """(G, M, D, F) of each matmul launch of the plan's first block (its
+    four layers), M = batch * seq tokens."""
+    out = []
+    for lp in plan.layers[:4]:
+        m = lp.mapping
+        out.append((m.group, batch * m.layer.i_h, m.layer.ic // m.group,
+                    m.layer.oc // m.group))
+    return out
+
+
+def check(label: str, y, ref) -> float:
+    """Print and enforce kernel vs plain within KERNEL_RTOL of max|y|;
+    returns the max abs error."""
+    import torch
+    torch.cuda.synchronize()
+    err, rel, scale = max_err(y, ref)
+    ok = (y.shape == ref.shape and bool(torch.isfinite(y).all())
+          and rel <= KERNEL_RTOL)
+    print(f"[kernel] {label}: max_abs_err={err:.3e} rel={rel:.3e} (tol "
+          f"{KERNEL_RTOL:g} of max|y|={scale:.3f}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: kernel disagrees with its plain "
+                             f"version")
+    return err
+
+
+def transformer_kernel_checks(shapes, dev) -> dict:
+    """Phase 7: each transformer kernel against its plain version at the
+    path's shapes and at ragged tails; returns each kernel's max error."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import tetris_matmul as tm
+    rng = np.random.RandomState(SEED)
+    errs = {"tetris_matmul": 0.0, "grouped_matmul": 0.0,
+            "flash_attention": 0.0}
+    mnk = [(m, f, d) for g, m, d, f in shapes["whisper_base"]]
+    for m, n, k in mnk + [(1000, 1000, 96), (130, 520, 72)]:
+        x, w = randn(rng, (m, k), dev), randn(rng, (k, n), dev)
+        e = check(f"tetris_matmul (M,N,K)=({m},{n},{k})",
+                  tm.tetris_matmul_cuda(x, w), tm.matmul_ref(x, w))
+        errs["tetris_matmul"] = max(errs["tetris_matmul"], e)
+    for g, m, d, f in shapes["stablelm_1_6b"] + [(3, 100, 40, 72)]:
+        x = randn(rng, (g, m, d), dev)
+        # the executor's group-major view of a (D, G*F) kernel
+        w = randn(rng, (d, g * f), dev).reshape(d, g, f).transpose(0, 1)
+        e = check(f"grouped_matmul (G,M,D,F)=({g},{m},{d},{f})",
+                  gm.grouped_matmul_cuda(x, w), gm.grouped_matmul_ref(x, w))
+        errs["grouped_matmul"] = max(errs["grouped_matmul"], e)
+    cases = [(bh, s, s, hd, c, 0) for bh, s, hd, _ in shapes["attention"]
+             for c in (True, False)] + [(8, 128, 384, 64, True, 256)]
+    for bh, sq, sk, d, causal, q_off in cases:
+        q = randn(rng, (bh, sq, d), dev)
+        k, v = randn(rng, (bh, sk, d), dev), randn(rng, (bh, sk, d), dev)
+        e = check(f"flash_attention BH={bh} Sq={sq} Sk={sk} D={d} "
+                  f"causal={causal} q_offset={q_off}",
+                  fa.flash_attention_cuda(q, k, v, causal=causal,
+                                          q_offset=q_off),
+                  fa.flash_attention_ref(q, k, v, causal=causal,
+                                         q_offset=q_off))
+        errs["flash_attention"] = max(errs["flash_attention"], e)
+    q = randn(rng, (4, 256, 8, 64), dev)
+    k, v = randn(rng, (4, 256, 2, 64), dev), randn(rng, (4, 256, 2, 64), dev)
+    ref = fa.flash_attention_ref(*fa.fold_heads(q, k, v), causal=True)
+    e = check("mha_flash GQA B=4 S=256 hq=8 hkv=2 D=64 causal",
+              fa.mha_flash(q, k, v, causal=True),
+              ref.reshape(4, 8, 256, 64).transpose(1, 2))
+    errs["flash_attention"] = max(errs["flash_attention"], e)
+    from repro_torch.exec import glue
+    for arch, (batch, heads, causal) in shapes["stage"].items():
+        hq, hkv, hd = heads
+        m = RAGGED_SEQ[arch]
+        y = randn(rng, (batch, (hq + 2 * hkv) * hd, m, 1), dev)
+        before = fa.flash_attention_cuda.launches
+        got = glue.attention_stage(y, heads, causal)
+        torch.cuda.synchronize()
+        n = fa.flash_attention_cuda.launches - before
+        if n != 1:
+            raise AssertionError(f"attention_stage at M={m}: {n} flash "
+                                 f"launches, not 1")
+        e = check(f"attention_stage {arch} B={batch} M={m} heads={heads} "
+                  f"causal={causal} ({n} flash launch)", got,
+                  glue.attention_stage(y, heads, causal, plain=True))
+        errs["flash_attention"] = max(errs["flash_attention"], e)
+    return errs
+
+
+def reset_all_counts() -> None:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import sdk_conv as sk
+    from repro_torch.kernels import tetris_matmul as tm
+    for mod in (sk, tm, gm, fa):
+        mod.reset_counts()
+
+
+def launch_counts() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import tetris_matmul as tm
+    return {"tetris_matmul": tm.tetris_matmul_cuda.launches,
+            "grouped_matmul": gm.grouped_matmul_cuda.launches,
+            "flash_attention": fa.flash_attention_cuda.launches}
+
+
+def serve_transformer(net, inputs, batch: int, dev, card: str) -> dict:
+    """Phase 8 for one model: serve it through the compiled plan with
+    every count at 0 just before, hold the launches to the plan, and the
+    forward to the plain-function oracle.  Returns the launches."""
+    import torch
+    from repro_torch.exec import execute_oracle, execute_plan
+    from repro_torch.launch import serve_cnn
+    name = net.name
+    reset_all_counts()
+    stats = serve_cnn.serve(net, batch, TF_STEPS, warmup=TF_WARMUP,
+                            seed=SEED, policy="auto", device=dev,
+                            inputs=inputs)
+    launches = launch_counts()
+    plan = stats.plan
+    if set(plan.executors) != {"matmul"}:
+        raise AssertionError(f"{name} plan executors {set(plan.executors)}")
+    per_fwd = {
+        "tetris_matmul": sum(lp.mapping.group == 1 for lp in plan.layers),
+        "grouped_matmul": sum(lp.mapping.group > 1 for lp in plan.layers),
+        "flash_attention": sum(lp.glue.post == "attention"
+                               for lp in plan.layers)}
+    forwards = TF_WARMUP + TF_STEPS
+    print(f"[transformer] {name}: {len(plan.layers)} layers, executors "
+          f"{'/'.join(sorted(set(plan.executors)))}, groups "
+          f"{sorted(set(lp.mapping.group for lp in plan.layers))}; "
+          f"launches over {forwards} forwards {launches} (per forward "
+          f"{per_fwd})")
+    for k, n in per_fwd.items():
+        if launches[k] != forwards * n:
+            raise AssertionError(f"{name}: {k} launched {launches[k]} times"
+                                 f" != {forwards} forwards x {n}")
+    if launches["flash_attention"] == 0 or launches["tetris_matmul"] \
+            + launches["grouped_matmul"] == 0:
+        raise AssertionError(f"{name}: the serving path launched no "
+                             f"matmul or no attention kernel")
+    ks, xh = inputs
+    xs = torch.as_tensor(xh, device=dev)
+    y = execute_plan(plan, ks, xs)
+    r = execute_oracle(plan, ks, xs)
+    torch.cuda.synchronize()
+    err, rel, scale = max_err(y, r)
+    print(f"[transformer] {name}: forward vs oracle max_abs_err={err:.3e} "
+          f"rel={rel:.3e} (tol {FORWARD_RTOL:g} of max|y|={scale:.3f})")
+    first = plan.layers[0].mapping.layer
+    if not (bool(torch.isfinite(y).all()) and rel <= FORWARD_RTOL
+            and y.shape == (batch, first.ic, first.i_h, 1)):
+        raise AssertionError(f"{name} forward disagrees with the oracle")
+    print(f"[transformer] {name} batch {batch} seq {first.i_h}: "
+          f"{stats.s_per_batch * 1e3:.4f} ms/batch, "
+          f"{stats.tokens_per_s:.1f} tokens/s on {card}")
+    profile_forward(name, plan, ks, xs, stats.s_per_batch)
+    return launches
+
+
+def profile_forward(name, plan, ks, xs, s_per_batch: float) -> None:
+    """The device time of one forward, from ``torch.profiler``'s CUDA
+    events (kernels, copies, fills), beside the serving loop's wall time
+    per batch: their ratio is the device's busy share while serving.
+    Prints the five largest device entries too."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.exec import execute_plan
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        execute_plan(plan, ks, xs)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in dev)
+    if total_us == 0:
+        print(f"[profile] {name}: device time not measured (the profiler "
+              f"recorded no device events)")
+        return
+    ms = total_us / 1e3
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
+    print(f"[profile] {name}: one forward {ms:.4f} ms of device time in "
+          f"{sum(e.count for e in dev)} device events, "
+          f"{100 * ms / (s_per_batch * 1e3):.1f} % of the serving loop's "
+          f"{s_per_batch * 1e3:.4f} ms/batch; largest: " + "; ".join(
+              f"{e.key[:48]} x{e.count} {e.self_device_time_total / 1e3:.4f}"
+              f" ms" for e in top))
+
+
+def time_transformer_kernels(shapes, dev, card: str) -> dict:
+    """Phase 9: per kernel, summed over its path's launches of one block
+    (flash: one launch of each model), the kernel's device time (stream
+    held) and per-call time, the plain version's per-call time, the
+    library call's device time and the bound."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import tetris_matmul as tm
+    rng = np.random.RandomState(SEED)
+    keys = ("ms", "call_ms", "plain_ms", "library_ms", "flops", "bytes")
+    totals = {k: dict.fromkeys(keys, 0.0) for k in
+              ("tetris_matmul", "grouped_matmul", "flash_attention")}
+
+    def add(kernel, label, run, plain, library, flops, nbytes):
+        t = {"ms": device_ms(run, iters=20), "call_ms": call_ms(run, 20),
+             "plain_ms": call_ms(plain, 5), "library_ms":
+             device_ms(library, iters=20), "flops": flops, "bytes": nbytes}
+        for k in keys:
+            totals[kernel][k] += t[k]
+        bound, by = bound_ms(flops, nbytes)
+        print(f"[time] {kernel} {label}: device {t['ms']:.5f} ms, per call "
+              f"{t['call_ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, "
+              f"library {t['library_ms']:.5f} ms, bound {bound:.6f} ms "
+              f"({by}); {flops / t['ms'] / 1e9:.3f} TFLOP/s kernel, "
+              f"{flops / t['library_ms'] / 1e9:.3f} library on {card}")
+
+    for g, m, d, f in shapes["whisper_base"]:
+        x, w = randn(rng, (m, d), dev), randn(rng, (d, f), dev)
+        add("tetris_matmul", f"(M,N,K)=({m},{f},{d})",
+            lambda: tm.tetris_matmul_cuda(x, w), lambda: tm.matmul_ref(x, w),
+            lambda: torch.matmul(x, w), 2.0 * m * f * d,
+            4.0 * (m * d + d * f + m * f))
+    for g, m, d, f in shapes["stablelm_1_6b"]:
+        x = randn(rng, (g, m, d), dev)
+        w = randn(rng, (d, g * f), dev).reshape(d, g, f).transpose(0, 1)
+        add("grouped_matmul", f"(G,M,D,F)=({g},{m},{d},{f})",
+            lambda: gm.grouped_matmul_cuda(x, w),
+            lambda: gm.grouped_matmul_ref(x, w), lambda: torch.bmm(x, w),
+            2.0 * g * m * d * f, 4.0 * g * (m * d + d * f + m * f))
+    for bh, s, d, causal in shapes["attention"]:
+        q = randn(rng, (bh, s, d), dev)
+        k, v = randn(rng, (bh, s, d), dev), randn(rng, (bh, s, d), dev)
+        add("flash_attention", f"BH={bh} S={s} D={d} causal={causal}",
+            lambda: fa.flash_attention_cuda(q, k, v, causal=causal),
+            lambda: fa.flash_attention_ref(q, k, v, causal=causal),
+            lambda: F.scaled_dot_product_attention(q, k, v,
+                                                   is_causal=causal),
+            *attention_work(bh, s, s, d, causal))
+    for t in totals.values():
+        t["bound_ms"], t["bound_by"] = bound_ms(t["flops"], t["bytes"])
+    return totals
+
+
+def transformer_phases(dev, card: str) -> list:
+    """Phases 7-9; returns the three transformer kernels' rows of the
+    kernels line."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ArrayConfig
+    from repro_torch.launch import serve_cnn
+    from repro_torch.launch.transformer import transformer_mapping
+    from repro_torch.exec import compile_plan
+    nets, shapes = {}, {"attention": [], "stage": {}}
+    for arch, seq, batch in TRANSFORMERS:
+        t0 = time.perf_counter()
+        net = transformer_mapping(get_config(arch), seq=seq,
+                                  array=ArrayConfig(512, 512))
+        nets[arch] = (net, batch)
+        plan = compile_plan(net, executor_policy="auto", batch=batch,
+                            device=dev)
+        shapes[arch] = block_shapes(plan, batch)
+        hq, hkv, hd = net.glue[0].heads
+        shapes["attention"].append((batch * hq, seq, hd,
+                                    net.glue[0].causal))
+        shapes["stage"][arch] = (batch, net.glue[0].heads,
+                                 net.glue[0].causal)
+        print(f"[transformer] {arch}: mapped {len(net.layers)} layers "
+              f"in {time.perf_counter() - t0:.3f} s; block launches "
+              f"(G, M, D, F) {shapes[arch]}")
+    errs = transformer_kernel_checks(shapes, dev)
+    launches = dict.fromkeys(errs, 0)
+    for arch, (net, batch) in nets.items():
+        t0 = time.perf_counter()
+        inputs = serve_cnn.serving_inputs(net, batch, SEED, dev)
+        print(f"[transformer] {arch}: drew {len(inputs[0])} kernels and "
+              f"the input in {time.perf_counter() - t0:.3f} s")
+        for k, n in serve_transformer(net, inputs, batch, dev,
+                                      card).items():
+            launches[k] += n
+        del inputs
+    times = time_transformer_kernels(shapes, dev, card)
+    paths = {
+        "tetris_matmul": ("serve whisper-base encoder --policy auto",
+                          "whisper-base block at batch 4, seq 1024: "
+                          "qkv, o, w1, w2 launches, summed",
+                          TETRIS_SITE, "src/repro_torch/csrc/matmul.cu"),
+        "grouped_matmul": ("serve stablelm-1.6b --policy auto",
+                           "stablelm-1.6b block at batch 4, seq 512 "
+                           "(G=4): qkv, o, w1, w2 launches, summed",
+                           GROUPED_SITE, "src/repro_torch/csrc/matmul.cu"),
+        "flash_attention": ("serve stablelm-1.6b + whisper-base encoder "
+                            "--policy auto",
+                            "one stablelm-1.6b causal launch (BH=128, "
+                            "S=512) + one whisper-base launch (BH=32, "
+                            "S=1024), D=64, summed", FLASH_SITE,
+                            "src/repro_torch/csrc/flash_attention.cu")}
+    rows = []
+    for name, (path, shape, site, source) in paths.items():
+        t = times[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": site, "launches": launches[name], "path": path,
+            "max_abs_err": errs[name], "ms": t["ms"],
+            "call_ms": t["call_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "shapes": shape,
+            "timing": "ms, library_ms: device time, stream held; call_ms, "
+                      "plain_ms: per call incl. host"})
+    return rows
 
 
 def main() -> int:
@@ -344,6 +712,8 @@ def main() -> int:
             "shapes": "cnn8 sdk layers CNN8-3..7 at batch 8, summed",
             "timing": "ms, library_ms: device time, stream held; call_ms, "
                       "plain_ms: per call incl. host"})
+    # -- 7-9. the transformer path ---------------------------------------
+    rows += transformer_phases(dev, card)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

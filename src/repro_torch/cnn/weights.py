@@ -1,9 +1,11 @@
 """Carry kernels across from the JAX package.
 
 The JAX package's serving and test kernels are numpy-drawn arrays in
-grouped HWIO layout ``(k_h, k_w, ic // G, oc)``.  :func:`kernels_from_numpy`
-hands the same values to the port, so both packages compute the same
-convolutions on the same weights."""
+grouped HWIO layout ``(k_h, k_w, ic // G, oc)``; a matmul layer of a
+lowered transformer takes the degenerate ``(1, 1, ic // G, oc)`` in the
+same layout (oc group-major).  :func:`kernels_from_numpy` hands the same
+values to the port, so both packages compute the same convolutions and
+matmuls on the same weights."""
 from __future__ import annotations
 
 from typing import List, Sequence
@@ -17,7 +19,8 @@ from ..device import DeviceLike, resolve_device
 def kernels_from_numpy(kernels: Sequence[np.ndarray],
                        device: DeviceLike = None) -> List[torch.Tensor]:
     """float32 tensors on ``device`` (default: the card), in the layout
-    given — ``[np.asarray(k) for k in ks]`` of the JAX package's list."""
+    given — ``[np.asarray(k) for k in ks]`` of the JAX package's list,
+    conv kernels and matmul kernels alike."""
     dev = resolve_device(device)
     return [torch.tensor(np.asarray(k, dtype=np.float32), device=dev)
             for k in kernels]

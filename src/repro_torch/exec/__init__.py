@@ -1,11 +1,12 @@
-"""Compiled execution plans (port of ``repro.exec``, CNN chains).
+"""Compiled execution plans (port of ``repro.exec``): CNN chains and
+transformer lowerings with explicit glue.
 
     from repro_torch.exec import compile_plan, execute_plan
     plan = compile_plan(net_mapping, executor_policy="auto", batch=8)
     y = execute_plan(plan, kernels, x)
 """
-from .glue import (ACTIVATIONS, GLUE_KINDS, GlueSpec, center_crop,
-                   fit_spatial, resolve_chain)
+from .glue import (ACTIVATIONS, GLUE_KINDS, GlueSpec, attention_stage,
+                   center_crop, fit_spatial, layernorm, resolve_chain)
 from .memory import LayerMemory, network_memory, peak_bytes, total_bytes
 from .plan import (EXECUTORS, PASSES, LayerPlan, NetworkPlan, PlanDraft,
                    PolicyLike, compile_plan)
@@ -15,8 +16,8 @@ from .run import execute_looped, execute_oracle, execute_plan
 __all__ = [
     "ACTIVATIONS", "GLUE_KINDS", "GlueSpec", "EXECUTORS", "LayerMemory",
     "LayerPlan", "NetworkPlan", "PASSES", "PlanDraft", "PolicyLike",
-    "allowed_cuts", "canonical_remat", "center_crop", "compile_plan",
-    "execute_looped", "execute_oracle", "execute_plan", "fit_spatial",
-    "network_memory", "peak_bytes", "plan_segments", "resolve_chain",
-    "total_bytes",
+    "allowed_cuts", "attention_stage", "canonical_remat", "center_crop",
+    "compile_plan", "execute_looped", "execute_oracle", "execute_plan",
+    "fit_spatial", "layernorm", "network_memory", "peak_bytes",
+    "plan_segments", "resolve_chain", "total_bytes",
 ]

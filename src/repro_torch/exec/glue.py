@@ -1,5 +1,5 @@
 """Inter-layer glue: the deterministic adapters between mapped layers
-(port of ``repro/exec/glue.py``, CNN part).
+(port of ``repro/exec/glue.py``).
 
 A `NetworkMapping` chains layers whose padded specs rarely line up
 exactly; the glue closes the gap in two orthogonal directions:
@@ -13,8 +13,14 @@ exactly; the glue closes the gap in two orthogonal directions:
   layer's unpadded input is concatenated with its output) when it
   equals their sum, and a clear error otherwise.
 
-``layernorm`` and the attention stage of the transformer lowerings are
-not ported yet.
+Glue is a structured `core.GlueSpec`: ``kind`` is the carry rule
+(:data:`GLUE_KINDS`), plus optional per-layer stages the CIM macros do
+not execute — ``pre`` layernorm passthrough (:func:`layernorm`), ``act``
+activations (:data:`ACTIVATIONS`), ``save``/``kind="residual"`` for
+transformer residual adds, and the ``post="attention"`` stage
+(:func:`attention_stage`) that turns a fused qkv projection's output
+into attention context via `kernels.flash_attention` between two mapped
+matmuls.
 """
 from __future__ import annotations
 
@@ -32,8 +38,51 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-#: Per-layer glue activations (GlueSpec.act).
+#: Per-layer glue activations (GlueSpec.act).  A layer whose glue names
+#: one overrides any network-global ``activation`` for that layer.
 ACTIVATIONS = {"relu": F.relu, "gelu": _gelu, "silu": F.silu}
+
+
+def layernorm(x: torch.Tensor, dim: int = 1,
+              eps: float = 1e-5) -> torch.Tensor:
+    """Parameter-free layernorm over the channel axis (GlueSpec.pre),
+    with the biased variance (``jnp.var``).  Norms stay outside the CIM
+    macros as passthrough stages; learned scale/bias would fold into the
+    next matmul's mapped weights."""
+    mu = x.mean(dim=dim, keepdim=True)
+    var = x.var(dim=dim, keepdim=True, unbiased=False)
+    return (x - mu) * torch.rsqrt(var + eps)
+
+
+def attention_stage(y: torch.Tensor, heads, causal: bool, *,
+                    plain: bool = False) -> torch.Tensor:
+    """The attention stage (GlueSpec.post="attention"): consume a fused
+    qkv projection's output ``y (B, (hq+2*hkv)*hd, M, 1)`` and return
+    context ``(B, hq*hd, M, 1)`` for the mapped O projection.
+
+    Runs `kernels.flash_attention.mha_flash` for every M: the CUDA
+    kernel masks ragged tiles, so the JAX package's plain branch for an
+    M that does not tile by 128 is not needed.  ``plain=True`` takes
+    `flash_attention_ref` instead (the oracle forward).  The stage is
+    glue, not a mapped layer, so cycle accounting is unaffected either
+    way."""
+    from ..kernels import flash_attention as fa
+    hq, hkv, hd = heads
+    b, c, m, w = y.shape
+    if w != 1 or c != (hq + 2 * hkv) * hd:
+        raise ValueError(f"attention_stage: qkv output {tuple(y.shape)} != "
+                         f"(B, {(hq + 2 * hkv) * hd}, M, 1) for "
+                         f"heads={heads}")
+    tok = y[..., 0].transpose(1, 2)                      # (B, M, C)
+    q = tok[..., :hq * hd].reshape(b, m, hq, hd)
+    k = tok[..., hq * hd:(hq + hkv) * hd].reshape(b, m, hkv, hd)
+    v = tok[..., (hq + hkv) * hd:].reshape(b, m, hkv, hd)
+    if not plain:
+        o = fa.mha_flash(q, k, v, causal=causal)
+    else:
+        o = fa.flash_attention_ref(*fa.fold_heads(q, k, v), causal=causal)
+        o = o.reshape(b, hq, m, hd).transpose(1, 2)
+    return o.reshape(b, m, hq * hd).transpose(1, 2)[..., None]
 
 
 def fit_spatial(x: torch.Tensor, i_h: int, i_w: int) -> torch.Tensor:

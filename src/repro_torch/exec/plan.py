@@ -11,10 +11,12 @@ pass takes the draft and returns an updated one::
 
 * **validate** — whole-plan input legality (batch);
 * **resolve_executors** — per-layer executor legality (sdk
-  realizability);
+  realizability, matmul op match);
 * **check_glue** — inter-layer glue: plain chain / DenseNet concat
-  classified from channel arithmetic (exec/glue.py) — a mis-chained
-  network fails at compile, not mid-forward;
+  classified from channel arithmetic (exec/glue.py) for CNNs, or the
+  mapping's explicit `GlueSpec` tuple (transformer lowerings) validated
+  by carry simulation — a mis-chained network fails at compile, not
+  mid-forward;
 * **estimate_memory** — per-layer live-activation + shifted-weight
   byte estimates from the LayerMapping itself (exec/memory.py);
 * **segment** — rematerialization boundaries under the requested
@@ -23,14 +25,14 @@ pass takes the draft and returns an updated one::
   steps==cycles assertion evaluated here, at compile time.
 
 The plan's device type takes the place of the JAX package's
-``interpret`` flag: ``_auto_executor`` picks the ``sdk`` kernels for a
-``"cuda"`` plan exactly where the JAX package picks them on a TPU.
+``interpret`` flag: ``_auto_executor`` picks the ``sdk`` and ``matmul``
+kernels for a ``"cuda"`` plan exactly where the JAX package picks them
+on a TPU.
 Plans are frozen, hashable and picklable; they join the memo result /
 disk cache keyed on mapping + resolved policy + device + batch + flags.
 
 Not ported yet: device meshes (``mesh=None`` only), the ``"tuned"``
-policy (the autotuner), the ``"matmul"`` executor and explicit
-(transformer) glue, and layerwise (``chained=False``) plans.
+policy (the autotuner), and layerwise (``chained=False``) plans.
 """
 from __future__ import annotations
 
@@ -45,8 +47,10 @@ from . import memory as memlib
 from . import remat as rematlib
 from .glue import resolve_chain
 
-#: Executors a plan can dispatch a layer to in this port.
-EXECUTORS = ("reference", "mapped", "sdk")
+#: Executors a plan can dispatch a layer to in this port.  "matmul" runs
+#: ``op="matmul"`` layers on the matmul kernels
+#: (kernels/matmul_exec.py: tetris_matmul / grouped_matmul).
+EXECUTORS = ("reference", "mapped", "sdk", "matmul")
 
 #: Anything compile_plan accepts as a policy: one name (or "auto") for
 #: every layer, a per-layer sequence of names, or a callable
@@ -59,7 +63,7 @@ class LayerPlan:
     """Compiled execution of ONE layer, fixed at compile time."""
 
     mapping: object             # LayerMapping (frozen, hashable)
-    executor: str               # "reference" | "mapped" | "sdk"
+    executor: str               # "reference" | "mapped" | "sdk" | "matmul"
     schedule: LayerSchedule     # steps==cycles evidence (compile-time)
     glue: GlueSpec              # structured inter-layer glue (core.types)
     carry_c: int                # channels entering this layer
@@ -239,44 +243,108 @@ def pass_validate(d: PlanDraft) -> PlanDraft:
     """Whole-plan input legality."""
     if d.batch is not None and d.batch < 1:
         raise ValueError(f"batch must be >= 1, got {d.batch}")
-    if d.net.glue is not None:
-        raise ValueError(
-            f"{d.net.name}: explicit glue (transformer lowerings) is not "
-            f"ported yet")
     return d
 
 
 def pass_resolve_executors(d: PlanDraft) -> PlanDraft:
     """Executor legality per layer."""
     for m, ex in zip(d.net.layers, d.execs):
+        lay = m.layer
         if ex == "sdk" and not _sdk_realizable(m):
             raise ValueError(
-                f"{m.layer.name}: executor 'sdk' runs passes/groups "
+                f"{lay.name}: executor 'sdk' runs passes/groups "
                 f"sequentially and cannot realize sub-grid "
                 f"{m.sub_grid.r}x{m.sub_grid.c} / {m.group_rounds} group "
                 f"rounds — use 'mapped'")
+        if ex == "matmul" and getattr(lay, "op", "conv") != "matmul":
+            raise ValueError(
+                f"{lay.name}: executor 'matmul' requires op='matmul' "
+                f"(this layer is op={getattr(lay, 'op', 'conv')!r})")
     return d
 
 
 def pass_check_glue(d: PlanDraft) -> PlanDraft:
-    """Classify inter-layer glue and the carry channel count entering
-    each layer."""
+    """Classify / validate inter-layer glue and the carry channel count
+    entering each layer."""
     net = d.net
     n = len(net.layers)
     glue, carries = [], []
     carry_c = net.layers[0].layer.ic
+    saved: list = []                # channel widths of GlueSpec.save stack
     for i, m in enumerate(net.layers):
         lay = m.layer
         carries.append(carry_c)
-        if i + 1 < n:
-            nxt = net.layers[i + 1].layer
-            spec = GlueSpec(kind=resolve_chain(
-                lay.name, lay.oc, carry_c, nxt.name, nxt.ic))
+        if net.glue is not None:
+            spec = net.glue[i]
+            carry_c, saved = _check_explicit_glue(net, i, spec, carry_c,
+                                                  saved)
         else:
-            spec = GlueSpec(kind="last")
-        carry_c = net.layers[i + 1].layer.ic if i + 1 < n else lay.oc
+            if i + 1 < n:
+                nxt = net.layers[i + 1].layer
+                spec = GlueSpec(kind=resolve_chain(
+                    lay.name, lay.oc, carry_c, nxt.name, nxt.ic))
+            else:
+                spec = GlueSpec(kind="last")
+            carry_c = net.layers[i + 1].layer.ic if i + 1 < n else lay.oc
         glue.append(spec)
+    if net.glue is not None and saved:
+        raise ValueError(
+            f"{net.name}: {len(saved)} saved residual input(s) never "
+            f"consumed by a kind='residual' glue")
     return replace(d, glue=tuple(glue), carries=tuple(carries))
+
+
+def _check_explicit_glue(net: NetworkMapping, i: int, spec: GlueSpec,
+                         carry_c: int, saved: list):
+    """Compile-time channel simulation of one explicit-glue step: what
+    `resolve_chain` does for inferred CNN glue, generalized to the
+    save/residual stack and the attention stage.  Returns the carry
+    channel count entering layer i+1 and the updated saved stack —
+    raising the mis-chaining error here, never mid-forward."""
+    lay = net.layers[i].layer
+    last = i + 1 == len(net.layers)
+    if lay.ic != carry_c:
+        raise ValueError(
+            f"{lay.name}: glue carries {carry_c} channels into a layer "
+            f"with ic={lay.ic}")
+    if spec.kind == "layerwise" or (spec.kind == "last" and not last):
+        raise ValueError(
+            f"{lay.name}: glue kind {spec.kind!r} is invalid for chained "
+            f"layer {i} of {len(net.layers)}")
+    out_c = lay.oc
+    if spec.post == "attention":
+        hq, hkv, hd = spec.heads
+        if getattr(lay, "op", "conv") != "matmul" \
+                or lay.oc != (hq + 2 * hkv) * hd:
+            raise ValueError(
+                f"{lay.name}: post='attention' with heads "
+                f"({hq}q, {hkv}kv, {hd}d) needs an op='matmul' layer "
+                f"with oc={(hq + 2 * hkv) * hd}, got op="
+                f"{getattr(lay, 'op', 'conv')!r} oc={lay.oc}")
+        out_c = hq * hd
+    saved = list(saved)
+    if spec.save:
+        saved.append(carry_c)
+    if spec.kind == "residual":
+        if not saved:
+            raise ValueError(f"{lay.name}: kind='residual' with no saved "
+                             f"input (no earlier glue set save=True)")
+        res_c = saved.pop()
+        if res_c != out_c:
+            raise ValueError(
+                f"{lay.name}: residual add of {res_c} saved channels "
+                f"onto {out_c} output channels")
+        nxt_c = out_c
+    elif spec.kind == "concat":
+        nxt_c = carry_c + out_c
+    else:                               # "chain" or final "last"
+        nxt_c = out_c
+    if not last and net.layers[i + 1].layer.ic != nxt_c:
+        nxt = net.layers[i + 1].layer
+        raise ValueError(
+            f"cannot chain {lay.name} ({spec.kind}, {nxt_c} carry "
+            f"channels) into {nxt.name} (ic={nxt.ic})")
+    return nxt_c, saved
 
 
 def pass_estimate_memory(d: PlanDraft) -> PlanDraft:

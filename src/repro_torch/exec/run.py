@@ -1,7 +1,10 @@
 """Execute a :class:`NetworkPlan` (port of ``repro/exec/run.py``).
 
 PyTorch runs eagerly, so the forward is a Python loop over the planned
-layers: each layer's glue is replayed, then its planned executor runs.
+layers: each layer's glue is replayed around its planned executor —
+spatial fit, the ``save`` stack, ``pre`` layernorm, the layer, its
+``act``, the ``post`` attention stage, then the carry rule (chain,
+concat, residual add).
 The JAX package's whole-forward ``jax.jit`` program and its lookahead
 ``_fence`` barrier (which only shaped XLA's schedule inside that
 program) have no counterpart here; ``NetworkPlan.lookahead`` stays in
@@ -17,8 +20,10 @@ import torch
 
 from ..cnn.cim_conv import cim_conv2d, reference_conv2d
 from ..cnn.mapped_net import mapped_conv2d
+from ..kernels.matmul_exec import matmul_layer, matmul_layer_ref
 from ..kernels.sdk_conv import sdk_conv
-from .glue import ACTIVATIONS, center_crop, fit_spatial
+from .glue import (ACTIVATIONS, attention_stage, center_crop, fit_spatial,
+                   layernorm)
 from .plan import LayerPlan, NetworkPlan
 
 ConvFn = Callable[[LayerPlan, torch.Tensor, torch.Tensor], torch.Tensor]
@@ -33,30 +38,51 @@ def _layer_conv(lp: LayerPlan, x: torch.Tensor,
     if lp.executor == "sdk":
         return sdk_conv(m, x, kernel, block=lp.block,
                         vmem_budget=lp.vmem_budget)
+    if lp.executor == "matmul":
+        return matmul_layer(m, x, kernel)
     return cim_conv2d(m, x, kernel)
 
 
 def _oracle_conv(lp: LayerPlan, x: torch.Tensor,
                  kernel: torch.Tensor) -> torch.Tensor:
+    """The plain function of a layer: the einsum of a matmul layer,
+    ``F.conv2d`` of a conv layer."""
+    if getattr(lp.mapping.layer, "op", "conv") == "matmul":
+        return matmul_layer_ref(lp.mapping, x, kernel)
     return reference_conv2d(lp.mapping.layer, x, kernel,
                             groups=lp.mapping.group)
 
 
 def _forward(plan: NetworkPlan, kernels: Sequence[torch.Tensor],
-             x: torch.Tensor, activation, conv: ConvFn) -> torch.Tensor:
+             x: torch.Tensor, activation, conv: ConvFn,
+             plain: bool = False) -> torch.Tensor:
     """The planned forward chain.  Glue kinds were classified at compile
-    time (exec/glue.py); this only replays them."""
+    time (exec/glue.py); this only replays them.  ``plain`` runs the
+    attention stage on its plain softmax version (the oracle)."""
+    # with explicit glue (transformer lowerings) the glue owns every
+    # nonlinearity — the network-global activation applies only to
+    # inferred-glue (CNN) plans, where no GlueSpec.act is ever set
+    explicit = plan.net.glue is not None
+    saved = []                      # GlueSpec.save stack (residual bases)
     for lp, k in zip(plan.layers, kernels):
         lay = lp.mapping.layer
+        spec = lp.glue
         xp = fit_spatial(x, lay.i_h, lay.i_w)
-        y = conv(lp, xp, k)
-        if lp.glue.act != "none":
-            y = ACTIVATIONS[lp.glue.act](y)
-        elif activation is not None:
+        if spec.save:               # residual base: the pre-norm input
+            saved.append(xp)
+        xin = layernorm(xp) if spec.pre == "layernorm" else xp
+        y = conv(lp, xin, k)
+        if spec.act != "none":
+            y = ACTIVATIONS[spec.act](y)
+        elif activation is not None and not explicit:
             y = activation(y)
-        if lp.glue.kind == "concat":
+        if spec.post == "attention":
+            y = attention_stage(y, spec.heads, spec.causal, plain=plain)
+        if spec.kind == "concat":
             skip = center_crop(xp, y.shape[-2], y.shape[-1])
             x = torch.cat([skip, y], dim=1)
+        elif spec.kind == "residual":
+            x = saved.pop() + y     # channel match checked at compile
         else:                       # "chain" / "last"
             x = y
     return x
@@ -86,7 +112,9 @@ def execute_plan(plan: NetworkPlan, kernels: Sequence[torch.Tensor],
 
     ``kernels[i]`` is layer i's kernel in grouped HWIO layout, ``x`` the
     (batch, ic, i_h, i_w) input; both must lie on the plan's device.
-    ``activation`` applies after every layer.  ``donate`` is accepted
+    ``activation`` applies after every layer of an inferred-glue (CNN)
+    plan; explicit glue (transformer lowerings) owns its nonlinearities
+    and ignores it.  ``donate`` is accepted
     for the JAX package's signature; torch has no buffer donation, so
     it changes nothing (serving reports ``donated=False``)."""
     _check_call(plan, kernels, x)
@@ -105,8 +133,10 @@ def execute_looped(plan: NetworkPlan, kernels: Sequence[torch.Tensor],
 def execute_oracle(plan: NetworkPlan, kernels: Sequence[torch.Tensor],
                    x: torch.Tensor, *,
                    activation: Optional[Callable] = None) -> torch.Tensor:
-    """``F.conv2d`` composed over the SAME compiled chain — the oracle
-    the plan executors are cross-checked against (pruned channels must
-    be zeroed in ``kernels``)."""
+    """Plain functions composed over the SAME compiled chain — the oracle
+    the plan executors are cross-checked against: ``F.conv2d`` for conv
+    layers, `matmul_layer_ref` for matmul layers and
+    `flash_attention_ref` for every attention stage; no kernel wrapper
+    is called (pruned channels must be zeroed in ``kernels``)."""
     _check_call(plan, kernels, x)
-    return _forward(plan, kernels, x, activation, _oracle_conv)
+    return _forward(plan, kernels, x, activation, _oracle_conv, plain=True)

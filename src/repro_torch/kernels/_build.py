@@ -6,6 +6,9 @@ under a name keyed by a hash of its source and flags, then loaded with
 ``ctypes``.  A library is built at its first use in a process, never at
 import; an unchanged source found built is loaded as it is.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
+:func:`launch` calls an entry point and raises on the CUDA error it
+returns; :func:`cuda_operand` and :func:`ptr` prepare its tensor
+arguments.
 """
 from __future__ import annotations
 
@@ -18,6 +21,8 @@ import tempfile
 import threading
 from pathlib import Path
 from typing import Dict, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -99,3 +104,30 @@ def load(source: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _loaded[source] = lib
     return lib
+
+
+def cuda_operand(t: torch.Tensor, name: str) -> torch.Tensor:
+    """``t`` as the matmul and attention kernels take it: a CUDA f32
+    tensor with unit stride along its last dimension (a copy only when
+    that stride is not 1)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} is on {t.device}, the kernel needs a "
+                         f"CUDA tensor")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name} is {t.dtype}, the kernel takes f32")
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    """A tensor's device address as a C pointer argument."""
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def launch(fn, device: torch.device, *args) -> None:
+    """Call the C entry point ``fn(*args, stream)`` with ``device``
+    current and its current stream; raise on the CUDA error it returns."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__}: CUDA error {err} at launch")

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.types import LayerMapping
+from ._build import launch, ptr
 
 #: Fallback ``block="auto"`` budget (bytes) when the environment does
 #: not override it — the JAX package's VMEM budget, kept as the same
@@ -258,15 +259,6 @@ def _c_geom(xt: torch.Tensor, kt: torch.Tensor, g: TileGeom, b_chunk: int,
                    run=run)
 
 
-def _launch(fn, xt, kt, out, geom: SdkGeom, *extra) -> None:
-    stream = torch.cuda.current_stream(xt.device).cuda_stream
-    err = fn(ctypes.c_void_p(xt.data_ptr()), ctypes.c_void_p(kt.data_ptr()),
-             ctypes.c_void_p(out.data_ptr()), ctypes.byref(geom), *extra,
-             ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__}: CUDA error {err} at launch")
-
-
 def whole_launch_dims(b: int, g: TileGeom) -> Tuple[int, int]:
     """(b_chunk, blocks) of the whole kernel: enough images per block to
     give it a thread per output element, up to the batch."""
@@ -304,10 +296,8 @@ def sdk_whole(xt: torch.Tensor, kt: torch.Tensor, g: TileGeom
     out = torch.zeros((g.ar_c, b, kt.shape[3], g.o_h, g.o_w),
                       dtype=torch.float32, device=xt.device)
     b_chunk, _ = whole_launch_dims(b, g)
-    lib = _library()
-    with torch.cuda.device(xt.device):
-        _launch(lib.sdk_conv_whole, xt, kt, out,
-                _c_geom(xt, kt, g, b_chunk, 1))
+    launch(_library().sdk_conv_whole, xt.device, ptr(xt), ptr(kt), ptr(out),
+           ctypes.byref(_c_geom(xt, kt, g, b_chunk, 1)))
     sdk_whole.launches += 1
     sdk_whole.steps += g.steps
     return out
@@ -324,10 +314,8 @@ def sdk_window(xt: torch.Tensor, kt: torch.Tensor, g: TileGeom
     out = torch.zeros((g.ar_c, b, kt.shape[3], g.o_h, g.o_w),
                       dtype=torch.float32, device=xt.device)
     b_chunk, run, smem, _ = window_launch_dims(b, g)
-    lib = _library()
-    with torch.cuda.device(xt.device):
-        _launch(lib.sdk_conv_window, xt, kt, out,
-                _c_geom(xt, kt, g, b_chunk, run), ctypes.c_int(smem))
+    launch(_library().sdk_conv_window, xt.device, ptr(xt), ptr(kt), ptr(out),
+           ctypes.byref(_c_geom(xt, kt, g, b_chunk, run)), ctypes.c_int(smem))
     sdk_window.launches += 1
     sdk_window.steps += g.steps
     return out

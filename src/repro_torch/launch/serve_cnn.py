@@ -1,4 +1,4 @@
-"""Batched CNN serving driver: compiled-plan throughput (images/s).
+"""Batched serving driver: compiled-plan throughput (images/s, tokens/s).
 
 Port of the fixed mode of ``repro/launch/serve_cnn.py``: map a benchmark
 conv stack once — reusing a persistent on-disk mapping cache so a cold
@@ -6,6 +6,14 @@ replica skips the window search — compile the mapping into a
 :class:`repro_torch.exec.NetworkPlan` (executor choice, schedule and glue
 fixed at compile time), then drive steady-state forward passes through
 ``execute_plan`` on the card and report images/s.
+
+:func:`serve` takes any NetworkMapping, including a transformer lowered
+by ``launch.transformer.transformer_mapping`` (matmul layers with
+explicit glue).  Its request row is a ``(d_model, seq, 1)`` frame of
+token embeddings, and ``ServeStats.tokens_per_s`` reports
+``batch * seq`` tokens per batch time beside images/s.  The CLI serves
+the CNN benchmarks only, as in the JAX package, where transformers are
+served through the fleet mode.
 
     python -m repro_torch.launch.serve_cnn --net cnn8 --batch 8 \
         --steps 20 --policy auto
@@ -74,7 +82,9 @@ def serving_inputs(net_mapping, batch: int, seed: int,
                    device: DeviceLike = None
                    ) -> Tuple[List[torch.Tensor], np.ndarray]:
     """(kernels on ``device``, host input batch) of a serving run — the
-    JAX package's values for the same ``seed``."""
+    JAX package's values for the same ``seed``.  A matmul layer's kernel
+    is ``(1, 1, ic // G, oc)`` and a transformer's input
+    ``(batch, d_model, seq, 1)``, drawn in the same order."""
     dev = resolve_device(device)
     rng, ks = _serving_kernels(net_mapping, seed, dev)
     first = net_mapping.layers[0].layer
@@ -95,19 +105,29 @@ class ServeStats:
     plan: object                # the NetworkPlan served from
     warmup_steps: int = 0       # warmup forwards actually executed
     donated: bool = False       # torch has no buffer donation
+    #: request tokens / batch time for a lowered transformer (batch rows
+    #: x ``tokens_per_row``); None for conv nets
+    tokens_per_s: Optional[float] = None
 
 
 def serve(net_mapping, batch: int, steps: int, warmup: int = 2,
           seed: int = 0, policy="mapped", block: Optional[str] = None,
           vmem_budget: Optional[int] = None,
-          device: DeviceLike = None) -> ServeStats:
+          device: DeviceLike = None, inputs=None) -> ServeStats:
     """Steady-state batched forward passes through a compiled plan on
     ``device`` (default: the card).
 
     ``warmup`` is honored exactly, including 0; the count actually
     executed is reported in ``ServeStats.warmup_steps``.  ``block`` and
-    ``vmem_budget`` reach the sdk layers (see `compile_plan`)."""
+    ``vmem_budget`` reach the sdk layers (see `compile_plan`).
+    ``inputs``, where given, must be the result of
+    ``serving_inputs(net_mapping, batch, seed, device)`` with the same
+    arguments; it is served instead of drawing it again (a full-width
+    transformer's weights take seconds to draw).  Nothing checks that
+    it was drawn for this net and seed beyond the plan's shape checks,
+    and ``seed`` is then unused."""
     from ..exec import compile_plan, execute_plan
+    from .transformer import tokens_per_row
 
     if warmup < 0:
         raise ValueError(f"warmup must be >= 0, got {warmup}")
@@ -116,7 +136,8 @@ def serve(net_mapping, batch: int, steps: int, warmup: int = 2,
     dev = resolve_device(device)
     plan = compile_plan(net_mapping, executor_policy=policy, batch=batch,
                         device=dev, block=block, vmem_budget=vmem_budget)
-    ks, x = serving_inputs(net_mapping, batch, seed, dev)
+    ks, x = inputs if inputs is not None else serving_inputs(
+        net_mapping, batch, seed, dev)
     ring = batching.InputRing(x, device=dev)
 
     def step():
@@ -130,9 +151,11 @@ def serve(net_mapping, batch: int, steps: int, warmup: int = 2,
     for _ in range(steps):
         step()
     dt = (time.perf_counter() - t0) / steps
+    seq = tokens_per_row(net_mapping)
     return ServeStats(images_per_s=batch / dt, padded_images_per_s=batch / dt,
                       s_per_batch=dt, request_batch=batch, plan_batch=batch,
-                      plan=plan, warmup_steps=warmup, donated=ring.donated)
+                      plan=plan, warmup_steps=warmup, donated=ring.donated,
+                      tokens_per_s=None if seq is None else batch * seq / dt)
 
 
 def main(argv=None) -> ServeStats:

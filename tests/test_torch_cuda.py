@@ -1,6 +1,7 @@
-"""The sdk CUDA kernels against their plain PyTorch version, on the
-card.  Marked ``cuda``: without a CUDA device each test skips.  On the
-card:
+"""The CUDA kernels against their plain PyTorch versions, on the card:
+the sdk kernels, tetris_matmul, grouped_matmul and flash_attention, the
+last also through the attention stage at a ragged length.  Marked
+``cuda``: without a CUDA device each test skips.  On the card:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
@@ -63,3 +64,97 @@ def test_kernel_matches_plain(cuda, name, batch, block):
     assert fn.steps == sk.sdk_conv_cycles(m)
     scale = float(want.abs().max())
     assert float((y - want).abs().max()) <= RTOL * scale
+
+
+def _rand(cuda, *shape, seed=0):
+    rng = np.random.RandomState(seed)
+    return torch.as_tensor(rng.randn(*shape).astype(np.float32), device=cuda)
+
+
+def _close(y, want):
+    scale = float(want.abs().max())
+    assert y.shape == want.shape
+    assert float((y - want).abs().max()) <= RTOL * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mnk", [
+    (4096, 1536, 512), (4096, 2048, 512), (1000, 1000, 96), (130, 520, 72),
+    (100, 60, 48), (33, 129, 64), (64, 64, 50), (7, 5, 3)])
+def test_tetris_matmul_matches_plain(cuda, mnk):
+    from repro_torch.kernels import tetris_matmul as tm
+    m, n, k = mnk
+    x, w = _rand(cuda, m, k, seed=1), _rand(cuda, k, n, seed=2)
+    tm.reset_counts()
+    y = tm.tetris_matmul(x, w)
+    torch.cuda.synchronize()
+    assert tm.tetris_matmul_cuda.launches == 1
+    _close(y, tm.matmul_ref(x, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gmdf", [
+    (4, 2048, 512, 1536), (4, 2048, 1408, 512), (3, 100, 40, 72),
+    (3, 50, 24, 30), (2, 17, 40, 65), (5, 8, 12, 8)])
+def test_grouped_matmul_matches_plain(cuda, gmdf):
+    from repro_torch.kernels import grouped_matmul as gm
+    g, m, d, f = gmdf
+    x, w = _rand(cuda, g, m, d, seed=3), _rand(cuda, g, d, f, seed=4)
+    gm.reset_counts()
+    y = gm.grouped_matmul(x, w)
+    # a strided group-major weight view, as the matmul executor passes it
+    wv = w.transpose(0, 1).contiguous().transpose(0, 1)
+    yv = gm.grouped_matmul(x, wv)
+    torch.cuda.synchronize()
+    assert gm.grouped_matmul_cuda.launches == 2
+    want = gm.grouped_matmul_ref(x, w)
+    _close(y, want)
+    _close(yv, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,sq,sk,d,causal,q_offset", [
+    (8, 512, 512, 64, True, 0), (8, 1024, 1024, 64, False, 0),
+    (4, 100, 100, 16, True, 0), (4, 128, 256, 32, True, 128),
+    (2, 256, 256, 128, False, 0), (3, 64, 64, 40, True, 0)])
+def test_flash_attention_matches_plain(cuda, bh, sq, sk, d, causal,
+                                       q_offset):
+    from repro_torch.kernels import flash_attention as fa
+    q = _rand(cuda, bh, sq, d, seed=5)
+    k, v = _rand(cuda, bh, sk, d, seed=6), _rand(cuda, bh, sk, d, seed=7)
+    fa.reset_counts()
+    y = fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_cuda.launches == 1
+    _close(y, fa.flash_attention_ref(q, k, v, causal=causal,
+                                     q_offset=q_offset))
+
+
+@pytest.mark.cuda
+def test_mha_flash_gqa_matches_plain(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    q = _rand(cuda, 2, 256, 8, 64, seed=8)
+    k, v = _rand(cuda, 2, 256, 2, 64, seed=9), _rand(cuda, 2, 256, 2, 64,
+                                                      seed=10)
+    y = fa.mha_flash(q, k, v, causal=True)
+    want = fa.flash_attention_ref(*fa.fold_heads(q, k, v), causal=True)
+    _close(y, want.reshape(2, 8, 256, 64).transpose(1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,heads,causal", [
+    (136, (32, 32, 64), True), (1500, (8, 8, 64), False),
+    (200, (8, 2, 64), True)])
+def test_attention_stage_ragged_launches_kernel(cuda, m, heads, causal):
+    """An M that does not tile by 128 (whisper's 1500-frame window among
+    them) still runs on the kernel: one launch per attention stage."""
+    from repro_torch.exec import glue
+    from repro_torch.kernels import flash_attention as fa
+    hq, hkv, hd = heads
+    y = _rand(cuda, 2, (hq + 2 * hkv) * hd, m, 1, seed=11)
+    fa.reset_counts()
+    got = glue.attention_stage(y, heads, causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_cuda.launches == 1
+    _close(got, glue.attention_stage(y, heads, causal, plain=True))
+    assert fa.flash_attention_cuda.launches == 1

@@ -37,7 +37,12 @@ def test_no_jax_or_reference_imports():
 def test_importing_the_port_loads_no_jax():
     code = ("import sys\n"
             "import repro_torch.launch.serve_cnn, repro_torch.exec, "
-            "repro_torch.cnn, repro_torch.kernels.sdk_conv\n"
+            "repro_torch.cnn, repro_torch.kernels.sdk_conv, "
+            "repro_torch.kernels.matmul_exec, "
+            "repro_torch.kernels.flash_attention, "
+            "repro_torch.launch.transformer, repro_torch.configs\n"
+            "from repro_torch.configs import get_config\n"
+            "get_config('stablelm_1_6b'); get_config('whisper_base')\n"
             "from repro_torch.kernels import _build\n"
             "assert not _build._loaded, 'a kernel was built at import'\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -53,10 +58,14 @@ def test_entry_points_need_a_card(monkeypatch):
     from repro_torch.device import resolve_device
     from repro_torch.exec import compile_plan
     from repro_torch.launch import serve_cnn
+    from repro_torch.launch.transformer import transformer_mapping
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     net = map_net("cnn8", networks.cnn8(), ArrayConfig(512, 512),
                   "TetrisG-SDK", groups=(1, 2, 4))
+    tnet = transformer_mapping("whisper_smoke", blocks=1)
     for call in (lambda: resolve_device(None),
+                 lambda: compile_plan(tnet),
+                 lambda: serve_cnn.serve(tnet, 1, 1),
                  lambda: resolve_device("cuda"),
                  lambda: compile_plan(net),
                  lambda: serve_cnn.serve(net, 2, 1),
