@@ -37,7 +37,27 @@ Phases, each of which raises on failure (exit code != 0):
    time, the plain version's, the bound and the library call's
    (``torch.matmul``, ``torch.bmm``, ``F.scaled_dot_product_attention``,
    timed as yardsticks only);
-10. a ``{"kernels": [...]}`` line: per kernel its launches, error, time
+10. ssd_chunk and im2win_conv vs plain — ``ssd_chunk`` against
+    ``ssd_chunk_plain`` at mamba2-130m's prefill shape (B 4, S 2048, H 24,
+    P 64, N 128, L 256), at a ragged prompt (S 2000, padded to 2048), at
+    S 100 < chunk and at the JAX kernel test's shape (G == H), in f32 and
+    bf16, and through the SSD mixer against ``plain=True``;
+    ``ops.conv2d`` (im2win_conv) on the 6 cnn8 and 8 Inception 5x5 layers
+    at batch 8 with every count at 0 just before and read just after,
+    blocks held to ``n_cycles``, each against ``F.conv2d``, and at the
+    JAX kernel test's shapes;
+11. mamba2-130m path — ``launch.serve.generate`` at full width (24
+    blocks, weights drawn on the card from the seed) with batch 4, prompt
+    2048, gen 32, every count at 0 just before and read just after:
+    ``ssd_chunk`` launches == 24 per prefill and none from decode; prefill
+    and decode rates, each the mean of several calls after the warm-up
+    ``generate``; the prefill's last-position logits against the same
+    prefill through the plain versions; one prefill under
+    ``torch.profiler``;
+12. the ops surface — ``ops.matmul``, ``ops.gmm``, ``ops.attention`` and
+    ``ops.conv2d`` once each at a path shape, each launching its kernel;
+13. ssd_chunk and im2win_conv times, as in 9;
+14. a ``{"kernels": [...]}`` line: per kernel its launches, error, time
     at its path's shapes, the plain version's time, the least time the
     card could take (its bound) and the library call's time;
 
@@ -49,6 +69,7 @@ too.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -75,6 +96,20 @@ WINDOW_SITE = "src/repro/kernels/im2win_conv.py:354"
 TETRIS_SITE = "src/repro/kernels/tetris_matmul.py:105"
 GROUPED_SITE = "src/repro/kernels/grouped_matmul.py:40"
 FLASH_SITE = "src/repro/kernels/flash_attention.py:86"
+SSD_SITE = "src/repro/kernels/ssd_chunk.py:67"
+IM2WIN_SITE = "src/repro/kernels/im2win_conv.py:128"
+#: bf16 kernel output vs the plain version in f32 on the same inputs: one
+#: bf16 rounding (2**-8 of the value) plus the f32 summation order
+BF16_RTOL = 2.0 ** -8 + KERNEL_RTOL
+#: the mamba2-130m path: full width and depth, batch 4, prompt 2048
+MAMBA = ("mamba2_130m", 4, 2048, 32)
+MAMBA_PREFILLS = 5
+#: prefill logits through the kernel vs through the plain versions, both
+#: in f32 compute, 24 blocks; relative to max|logit|.  In bf16 (as served)
+#: the random-weight model amplifies the kernels' one-ulp rounding
+#: differences through its 24 blocks about as far as bf16 itself moves
+#: the logits from f32, so that comparison is printed beside that floor
+LOGITS_RTOL = 2e-2
 #: the transformer path: (config, seq, batch), full width and depth
 TRANSFORMERS = (("stablelm_1_6b", 512, 4), ("whisper_base", 1024, 4))
 TF_WARMUP, TF_STEPS = 1, 20
@@ -213,16 +248,16 @@ def block_shapes(plan, batch: int):
     return out
 
 
-def check(label: str, y, ref) -> float:
-    """Print and enforce kernel vs plain within KERNEL_RTOL of max|y|;
-    returns the max abs error."""
+def check(label: str, y, ref, tol: float = KERNEL_RTOL) -> float:
+    """Print and enforce kernel vs plain within ``tol`` of max|ref| (any
+    float types, compared in f32); returns the max abs error."""
     import torch
     torch.cuda.synchronize()
-    err, rel, scale = max_err(y, ref)
+    err, rel, scale = max_err(y.float(), ref.float())
     ok = (y.shape == ref.shape and bool(torch.isfinite(y).all())
-          and rel <= KERNEL_RTOL)
+          and rel <= tol)
     print(f"[kernel] {label}: max_abs_err={err:.3e} rel={rel:.3e} (tol "
-          f"{KERNEL_RTOL:g} of max|y|={scale:.3f}) {'ok' if ok else 'FAIL'}")
+          f"{tol:.3g} of max|y|={scale:.3f}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{label}: kernel disagrees with its plain "
                              f"version")
@@ -294,19 +329,28 @@ def transformer_kernel_checks(shapes, dev) -> dict:
 def reset_all_counts() -> None:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import im2win_conv as iw
     from repro_torch.kernels import sdk_conv as sk
+    from repro_torch.kernels import ssd_chunk as sc
     from repro_torch.kernels import tetris_matmul as tm
-    for mod in (sk, tm, gm, fa):
+    for mod in (sk, tm, gm, fa, sc, iw):
         mod.reset_counts()
 
 
 def launch_counts() -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import im2win_conv as iw
+    from repro_torch.kernels import sdk_conv as sk
+    from repro_torch.kernels import ssd_chunk as sc
     from repro_torch.kernels import tetris_matmul as tm
     return {"tetris_matmul": tm.tetris_matmul_cuda.launches,
             "grouped_matmul": gm.grouped_matmul_cuda.launches,
-            "flash_attention": fa.flash_attention_cuda.launches}
+            "flash_attention": fa.flash_attention_cuda.launches,
+            "sdk_whole": sk.sdk_whole.launches,
+            "sdk_window": sk.sdk_window.launches,
+            "ssd_chunk": sc.ssd_chunk_cuda.launches,
+            "im2win_conv": iw.im2win_conv_cuda.launches}
 
 
 def serve_transformer(net, inputs, batch: int, dev, card: str) -> dict:
@@ -359,37 +403,9 @@ def serve_transformer(net, inputs, batch: int, dev, card: str) -> dict:
     print(f"[transformer] {name} batch {batch} seq {first.i_h}: "
           f"{stats.s_per_batch * 1e3:.4f} ms/batch, "
           f"{stats.tokens_per_s:.1f} tokens/s on {card}")
-    profile_forward(name, plan, ks, xs, stats.s_per_batch)
+    profile_call(f"{name} one forward", lambda: execute_plan(plan, ks, xs),
+                 stats.s_per_batch * 1e3)
     return launches
-
-
-def profile_forward(name, plan, ks, xs, s_per_batch: float) -> None:
-    """The device time of one forward, from ``torch.profiler``'s CUDA
-    events (kernels, copies, fills), beside the serving loop's wall time
-    per batch: their ratio is the device's busy share while serving.
-    Prints the five largest device entries too."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.exec import execute_plan
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        execute_plan(plan, ks, xs)
-        torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    total_us = sum(e.self_device_time_total for e in dev)
-    if total_us == 0:
-        print(f"[profile] {name}: device time not measured (the profiler "
-              f"recorded no device events)")
-        return
-    ms = total_us / 1e3
-    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
-    print(f"[profile] {name}: one forward {ms:.4f} ms of device time in "
-          f"{sum(e.count for e in dev)} device events, "
-          f"{100 * ms / (s_per_batch * 1e3):.1f} % of the serving loop's "
-          f"{s_per_batch * 1e3:.4f} ms/batch; largest: " + "; ".join(
-              f"{e.key[:48]} x{e.count} {e.self_device_time_total / 1e3:.4f}"
-              f" ms" for e in top))
 
 
 def time_transformer_kernels(shapes, dev, card: str) -> dict:
@@ -480,9 +496,9 @@ def transformer_phases(dev, card: str) -> list:
         inputs = serve_cnn.serving_inputs(net, batch, SEED, dev)
         print(f"[transformer] {arch}: drew {len(inputs[0])} kernels and "
               f"the input in {time.perf_counter() - t0:.3f} s")
-        for k, n in serve_transformer(net, inputs, batch, dev,
-                                      card).items():
-            launches[k] += n
+        got = serve_transformer(net, inputs, batch, dev, card)
+        for k in launches:
+            launches[k] += got[k]
         del inputs
     times = time_transformer_kernels(shapes, dev, card)
     paths = {
@@ -512,6 +528,415 @@ def transformer_phases(dev, card: str) -> list:
             "library_ms": t["library_ms"], "shapes": shape,
             "timing": "ms, library_ms: device time, stream held; call_ms, "
                       "plain_ms: per call incl. host"})
+    return rows
+
+
+def ssd_inputs(rng, b, s, h, p, g, n, dev, dtype):
+    """The JAX kernel test's distributions: dt > 0 small, a_log ~ 0."""
+    import numpy as np
+    import torch
+
+    def on(a):
+        return torch.as_tensor(a.astype("float32"), device=dev).to(dtype)
+    return (on(rng.randn(b, s, h, p)), on(np.abs(rng.randn(b, s, h)) * 0.1
+                                          + 0.05),
+            torch.as_tensor((rng.randn(h) * 0.3).astype("float32"),
+                            device=dev),
+            on(rng.randn(b, s, g, n) * 0.3), on(rng.randn(b, s, g, n) * 0.3))
+
+
+def ssd_kernel_checks(dev) -> float:
+    """Phase 10, ssd_chunk: the kernel against ssd_chunk_plain (f32 on the
+    same values) at the path's shape, a ragged prompt padded as
+    ``ssd_chunked`` pads it, S < chunk and the JAX test's shape, then the
+    mixer against ``plain=True``.  Returns the largest error on y or S."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.models import ssm
+    rng = np.random.RandomState(SEED)
+    arch, b, prompt, _ = MAMBA
+    cfg = get_config(arch).ssm
+    h, p, g, n = cfg.n_heads, cfg.head_dim, cfg.n_groups, cfg.d_state
+    worst = 0.0
+    cases = [((b, s, h, p, g, n), min(cfg.chunk, s))
+             for s in (prompt, prompt - 48, 100)]
+    cases += [((2, 128, 4, 16, 4, 8), 128), ((2, 128, 4, 16, 4, 8), 32)]
+    for shape, chunk in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            if shape[1] == 128 and dtype == torch.bfloat16:
+                continue
+            x, dt, a_log, bm, cm = ssd_inputs(rng, *shape, dev, dtype)
+            if shape[1] % chunk:            # pad as ssd_chunked does
+                pad = chunk - shape[1] % chunk
+                x, dt, bm, cm = (torch.cat([a, a.new_zeros(
+                    (a.shape[0], pad) + a.shape[2:])], 1)
+                    for a in (x, dt, bm, cm))
+            sc.reset_counts()
+            y, st = sc.ssd_chunk_cuda(x, dt, a_log, bm, cm, chunk=chunk)
+            torch.cuda.synchronize()
+            launched = sc.ssd_chunk_cuda.launches
+            want_y, want_s = sc.ssd_chunk_plain(
+                *(a.float() for a in (x, dt)), a_log, bm.float(), cm.float(),
+                chunk=chunk)
+            bf = dtype == torch.bfloat16
+            label = (f"ssd_chunk {'bf16' if bf else 'f32'} (B,S,H,P,G,N)="
+                     f"{tuple(x.shape[:3]) + shape[3:]} from S={shape[1]} "
+                     f"L={chunk} launches={launched}")
+            worst = max(worst,
+                        check(label + " y", y, want_y,
+                              BF16_RTOL if bf else KERNEL_RTOL),
+                        check(label + " states", st, want_s))
+            if launched != 1:
+                raise AssertionError(f"{label}: {launched} launches, not 1")
+    s = prompt - 48                             # ragged: padded to prompt
+    x, dt, a_log, bm, cm = ssd_inputs(rng, b, s, h, p, g, n, dev,
+                                      torch.float32)
+    d = torch.ones(h, device=dev)
+    sc.reset_counts()
+    y, st = ssm.ssd_chunked(x, dt, a_log, bm, cm, d, cfg)
+    launches = sc.ssd_chunk_cuda.launches
+    want_y, want_s = ssm.ssd_chunked(x, dt, a_log, bm, cm, d, cfg,
+                                     plain=True)
+    check(f"ssd_chunked f32 (B,S,H,P,G,N)={(b, s, h, p, g, n)} "
+          f"launches={launches} y", y, want_y)
+    check(f"ssd_chunked f32 S={s} final state", st, want_s)
+    if launches != 1:
+        raise AssertionError(f"ssd_chunked: {launches} kernel launches, "
+                             f"not 1")
+    return worst
+
+
+def conv_path(dev) -> tuple:
+    """Phase 10, im2win_conv: ``ops.conv2d`` over the paper's 14 layers at
+    batch 8, every count at 0 just before and read just after, the blocks
+    held to n_cycles; each output against F.conv2d (the plain version),
+    then the JAX kernel test's shapes.  Returns (launches on the path,
+    largest error, the layers' inputs)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import networks
+    from repro_torch.kernels import im2win_conv as iw
+    from repro_torch.kernels import ops
+    rng = np.random.RandomState(SEED)
+    layers = networks.cnn8() + networks.inception()
+    data = [(lay, randn(rng, (BATCH, lay.i_h, lay.i_w, lay.ic), dev),
+             randn(rng, (lay.k_h, lay.k_w, lay.ic, lay.oc), dev, 0.1))
+            for lay in layers]
+    cycles = 0
+    for lay, x, w in data:
+        o_h, o_w, th, tw = iw.conv_window(x.shape, w.shape)
+        cycles += iw.n_cycles(o_h, o_w, th, tw, BATCH)
+    reset_all_counts()
+    outs = [ops.conv2d(x, w) for _, x, w in data]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    blocks = iw.im2win_conv_cuda.blocks
+    print(f"[conv] ops.conv2d over {len(data)} layers at batch {BATCH}: "
+          f"im2win_conv launches={counts['im2win_conv']} blocks={blocks} "
+          f"n_cycles={cycles}; other launches "
+          f"{ {k: v for k, v in counts.items() if k != 'im2win_conv'} }")
+    if counts["im2win_conv"] != len(data) or blocks != cycles or any(
+            v for k, v in counts.items() if k != "im2win_conv"):
+        raise AssertionError("the ops.conv2d path did not launch exactly one "
+                             "im2win_conv per layer over n_cycles blocks")
+    worst = 0.0
+    for (lay, x, w), y in zip(data, outs):
+        o_h, o_w, th, tw = iw.conv_window(x.shape, w.shape)
+        worst = max(worst, check(
+            f"im2win_conv {lay.name} batch {BATCH} window ({th},{tw}) "
+            f"blocks={iw.n_cycles(o_h, o_w, th, tw, BATCH)}", y,
+            iw.im2win_conv_plain(x, w), KERNEL_RTOL))
+    for b, h, w_, c, k, o in ((2, 18, 18, 24, 3, 32), (1, 12, 12, 8, 5, 16),
+                              (2, 9, 9, 32, 3, 64), (1, 7, 7, 3, 3, 5)):
+        x = randn(rng, (b, h, w_, c), dev)
+        w = randn(rng, (k, k, c, o), dev, 0.1)
+        worst = max(worst, check(
+            f"im2win_conv JAX test cfg {(b, h, w_, c, k, o)}",
+            iw.im2win_conv_cuda(x, w), iw.im2win_conv_plain(x, w),
+            KERNEL_RTOL))
+    return counts["im2win_conv"], worst, data
+
+
+def mamba_phase(dev, card: str) -> int:
+    """Phase 11: serve mamba2-130m through ``generate`` at full width;
+    returns ssd_chunk's launches on that path."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as T
+    arch, batch, prompt, gen = MAMBA
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    params = T.init_params(cfg, g, dev)
+    prompts = torch.randint(0, cfg.vocab, (batch, prompt), generator=g,
+                            device=dev)
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in T.tree_leaves(params))
+    print(f"[mamba] {cfg.name}: {cfg.n_layers} blocks, d {cfg.d_model}, "
+          f"{n_par} parameters drawn on the card in "
+          f"{time.perf_counter() - t0:.3f} s")
+    if n_par != cfg.param_count():
+        raise AssertionError(f"{n_par} parameters != param_count "
+                             f"{cfg.param_count()}")
+
+    reset_all_counts()
+    t0 = time.perf_counter()
+    out = generate(cfg, params, prompts, gen)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = launch_counts()
+    print(f"[mamba] generate batch {batch} prompt {prompt} gen {gen} "
+          f"(warm-up, builds nothing new): {first_s:.3f} s; launches "
+          f"{launches}")
+    if launches["ssd_chunk"] != cfg.n_layers or any(
+            v for k, v in launches.items() if k != "ssd_chunk"):
+        raise AssertionError(f"generate launched {launches}, not "
+                             f"ssd_chunk x {cfg.n_layers} (one prefill) only")
+    if not (out.shape == (batch, prompt + gen)
+            and torch.equal(out[:, :prompt], prompts)
+            and int(out.min()) >= 0 and int(out.max()) < cfg.vocab):
+        raise AssertionError(f"generate returned {tuple(out.shape)} tokens "
+                             f"outside the vocabulary or the prompt")
+
+    prefill = make_prefill_step(cfg, cache_len=prompt + gen)
+    serve = make_serve_step(cfg)
+    before = sc.ssd_chunk_cuda.launches
+    t_pre = []
+    for _ in range(MAMBA_PREFILLS):
+        t0 = time.perf_counter()
+        nxt, cache = prefill(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        t_pre.append(time.perf_counter() - t0)
+    n_pre = sc.ssd_chunk_cuda.launches - before
+    tok = nxt[:, None]
+    t_dec = []
+    for i in range(gen - 1):
+        t0 = time.perf_counter()
+        tok, cache = serve(params, cache, tok, prompt + i)
+        torch.cuda.synchronize()
+        t_dec.append(time.perf_counter() - t0)
+    n_dec = sc.ssd_chunk_cuda.launches - before - n_pre
+    pre_ms = 1e3 * sum(t_pre) / len(t_pre)
+    dec_ms = 1e3 * sum(t_dec) / len(t_dec)
+    print(f"[mamba] prefill {pre_ms:.4f} ms ({batch * prompt / pre_ms * 1e3:.1f}"
+          f" tokens/s; mean of {len(t_pre)}), decode {dec_ms:.4f} ms/token "
+          f"({batch / dec_ms * 1e3:.1f} tokens/s; mean of {len(t_dec)} "
+          f"steps) on {card}; ssd_chunk launches {n_pre} in the prefills, "
+          f"{n_dec} in decode")
+    if n_pre != cfg.n_layers * MAMBA_PREFILLS or n_dec != 0:
+        raise AssertionError(f"ssd_chunk launched {n_pre} times in "
+                             f"{MAMBA_PREFILLS} prefills and {n_dec} in "
+                             f"decode")
+
+    logits = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        with compute_dtype(dtype):
+            for plain in (False, True):
+                logits[dtype, plain] = T.forward(
+                    params, cfg, tokens=prompts, mode="prefill",
+                    plain=plain)[0].float()
+    torch.cuda.synchronize()
+    err, rel, scale = max_err(logits[torch.float32, False],
+                              logits[torch.float32, True])
+    print(f"[mamba] prefill logits in f32 compute, kernel vs plain versions:"
+          f" max_abs_err={err:.3e} rel={rel:.3e} (tol {LOGITS_RTOL:g} of "
+          f"max|logit|={scale:.3f})")
+    lk, lp = logits[torch.bfloat16, False], logits[torch.bfloat16, True]
+    _, rel_bf, _ = max_err(lk, lp)
+    _, floor, _ = max_err(lp, logits[torch.float32, True])
+    print(f"[mamba] prefill logits in bf16 compute (as served), kernel vs "
+          f"plain: rel={rel_bf:.3e}; the plain path's own bf16 vs f32 "
+          f"rel={floor:.3e}; argmax equal in "
+          f"{int((lk.argmax(-1) == lp.argmax(-1)).sum())}/{batch}")
+    if not (rel <= LOGITS_RTOL and all(bool(torch.isfinite(v).all())
+                                       for v in logits.values())
+            and lk.shape == (batch, 1, cfg.padded_vocab)):
+        raise AssertionError("mamba2-130m prefill disagrees with its plain "
+                             "version")
+    profile_call("mamba2-130m prefill", lambda: prefill(
+        params, {"tokens": prompts}), pre_ms, "ssd_chunk")
+    profile_call("mamba2-130m decode step", lambda: serve(
+        params, cache, tok, prompt + gen), dec_ms, "ssd_chunk")
+    return launches["ssd_chunk"]
+
+
+@contextlib.contextmanager
+def compute_dtype(dtype):
+    """The port's model compute type (bf16 as served) set to ``dtype``
+    for the block, then restored."""
+    from repro_torch.models import common
+    old, common.COMPUTE_DTYPE = common.COMPUTE_DTYPE, dtype
+    try:
+        yield
+    finally:
+        common.COMPUTE_DTYPE = old
+
+
+def profile_call(label: str, fn, wall_ms: float, kernel: str = "") -> None:
+    """One ``fn()`` under ``torch.profiler``: its device time (kernels,
+    copies, fills) beside the call's wall time when it serves (their
+    ratio is the device's busy share), the part of the device entries
+    whose name holds ``kernel``, and the largest entries."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in dev)
+    if total_us == 0:
+        print(f"[profile] {label}: device time not measured (the profiler "
+              f"recorded no device events)")
+        return
+    part = ""
+    if kernel:
+        k_us = sum(e.self_device_time_total for e in dev if kernel in e.key)
+        part = f"{kernel} {k_us / 1e3:.4f} ms ({100 * k_us / total_us:.1f} %); "
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"[profile] {label}: {total_us / 1e3:.4f} ms of device time in "
+          f"{sum(e.count for e in dev)} device events, "
+          f"{100 * total_us / 1e3 / wall_ms:.1f} % of its {wall_ms:.4f} ms "
+          f"wall time; {part}largest: " + "; ".join(
+              f"{e.key[:48]} x{e.count} {e.self_device_time_total / 1e3:.4f}"
+              f" ms" for e in top))
+
+
+def ops_phase(dev) -> None:
+    """Phase 12: each public wrapper once at a path shape on the card,
+    each launching its own kernel exactly once."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref
+    rng = np.random.RandomState(SEED)
+    calls = {
+        "tetris_matmul": ("ops.matmul (4096,512)@(512,1536)", ops.matmul,
+                          ref.matmul_ref, (randn(rng, (4096, 512), dev),
+                                           randn(rng, (512, 1536), dev))),
+        "grouped_matmul": ("ops.gmm (4,2048,512)@(4,512,1536)", ops.gmm,
+                           ref.grouped_matmul_ref,
+                           (randn(rng, (4, 2048, 512), dev),
+                            randn(rng, (4, 512, 1536), dev))),
+        "flash_attention": ("ops.attention BH=32 S=1024 D=64", ops.attention,
+                            ref.flash_attention_ref,
+                            tuple(randn(rng, (32, 1024, 64), dev)
+                                  for _ in range(3))),
+        "im2win_conv": ("ops.conv2d Incep-3b batch 8", ops.conv2d,
+                        ref.conv2d_ref, (randn(rng, (8, 28, 28, 32), dev),
+                                         randn(rng, (5, 5, 32, 96), dev,
+                                               0.1)))}
+    for name, (label, fn, plain, args) in calls.items():
+        before = launch_counts()
+        y = fn(*args)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        check(f"{label} ({moved})", y, plain(*args))
+        if moved != {name: 1}:
+            raise AssertionError(f"{label} launched {moved}, not {name} once")
+
+
+def time_new_kernels(conv_data, dev, card: str) -> dict:
+    """Phase 13: ssd_chunk at the path's shape (one block's prefill, bf16
+    as served) and im2win_conv over the 14 layers, summed: device time
+    (stream held), per-call time, the plain version's, the library
+    call's (F.conv2d; none computes ssd_chunk) and the bound."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import im2win_conv as iw
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.configs import get_config
+    rng = np.random.RandomState(SEED)
+    arch, b, s, _ = MAMBA
+    m = get_config(arch).ssm
+    h, p, g, n, chunk = (m.n_heads, m.head_dim, m.n_groups, m.d_state,
+                         min(m.chunk, s))
+    x, dt, a_log, bm, cm = ssd_inputs(rng, b, s, h, p, g, n, dev,
+                                      torch.bfloat16)
+    nc = s // chunk
+    pairs = b * nc * h
+    flops = pairs * (chunk * (chunk + 1) / 2 * 2 * (n + p)
+                     + 2 * chunk * p * n)
+    nbytes = (2 * (x.numel() * 2 + dt.numel() + bm.numel() + cm.numel())
+              + 4 * a_log.numel() + 4 * b * nc * h * p * n)
+    run = (lambda: sc.ssd_chunk_cuda(x, dt, a_log, bm, cm, chunk=chunk))
+    t_ssd = {"ms": device_ms(run, iters=20), "call_ms": call_ms(run, 20),
+             "plain_ms": call_ms(lambda: sc.ssd_chunk_plain(
+                 x, dt, a_log, bm, cm, chunk=chunk), 3, warmup=1),
+             "library_ms": None}
+    t_ssd["bound_ms"], t_ssd["bound_by"] = bound_ms(flops, nbytes)
+    print(f"[time] ssd_chunk bf16 (B,S,H,P,G,N,L)=({b},{s},{h},{p},{g},{n},"
+          f"{chunk}):"
+          f" device {t_ssd['ms']:.5f} ms, per call {t_ssd['call_ms']:.5f} ms, "
+          f"plain {t_ssd['plain_ms']:.5f} ms, bound {t_ssd['bound_ms']:.6f} ms"
+          f" ({t_ssd['bound_by']}); {flops / t_ssd['ms'] / 1e9:.3f} TFLOP/s "
+          f"useful on {card}")
+
+    keys = ("ms", "call_ms", "plain_ms", "library_ms", "flops", "bytes")
+    t_conv = dict.fromkeys(keys, 0.0)
+    for lay, x, w in conv_data:
+        o_h, o_w = lay.i_h - lay.k_h + 1, lay.i_w - lay.k_w + 1
+        xn = x.permute(0, 3, 1, 2).contiguous()
+        wn = w.permute(3, 2, 0, 1).contiguous()
+        run = (lambda x=x, w=w: iw.im2win_conv_cuda(x, w))
+        t = {"ms": device_ms(run, iters=20), "call_ms": call_ms(run, 20),
+             "plain_ms": call_ms(lambda x=x, w=w: iw.im2win_conv_plain(x, w),
+                                 20),
+             "library_ms": device_ms(lambda xn=xn, wn=wn: F.conv2d(xn, wn),
+                                     iters=50),
+             "flops": 2.0 * BATCH * o_h * o_w * lay.oc * lay.k_h * lay.k_w
+             * lay.ic,
+             "bytes": 4.0 * (x.numel() + w.numel()
+                             + BATCH * o_h * o_w * lay.oc)}
+        for k in keys:
+            t_conv[k] += t[k]
+        bound, by = bound_ms(t["flops"], t["bytes"])
+        print(f"[time] im2win_conv {lay.name} batch {BATCH}: device "
+              f"{t['ms']:.5f} ms, per call {t['call_ms']:.5f} ms, plain "
+              f"{t['plain_ms']:.5f} ms, F.conv2d {t['library_ms']:.5f} ms, "
+              f"bound {bound:.6f} ms ({by}) on {card}")
+    t_conv["bound_ms"], t_conv["bound_by"] = bound_ms(t_conv["flops"],
+                                                      t_conv["bytes"])
+    return {"ssd_chunk": t_ssd, "im2win_conv": t_conv}
+
+
+def ssd_conv_phases(dev, card: str) -> list:
+    """Phases 10-13; returns ssd_chunk's and im2win_conv's rows of the
+    kernels line."""
+    ssd_err = ssd_kernel_checks(dev)
+    conv_launches, conv_err, conv_data = conv_path(dev)
+    mamba_launches = mamba_phase(dev, card)
+    ops_phase(dev)
+    times = time_new_kernels(conv_data, dev, card)
+    timing = ("ms, library_ms: device time, stream held; call_ms, plain_ms: "
+              "per call incl. host")
+    rows = []
+    for name, launches, err, path, shape, site in (
+            ("ssd_chunk", mamba_launches, ssd_err,
+             "launch.serve.generate mamba2-130m batch 4 prompt 2048 gen 32 "
+             "(one prefill; decode runs no kernel)",
+             "one block's prefill, bf16: (B,S,H,P,N,L)=(4,2048,24,64,128,"
+             "256), G=1; library_ms null: no single PyTorch call computes "
+             "the masked-decay product and the chunk states", SSD_SITE),
+            ("im2win_conv", conv_launches, conv_err,
+             "ops.conv2d over cnn8 + Inception 5x5 layers at batch 8",
+             "the 14 layers at batch 8, summed", IM2WIN_SITE)):
+        t = times[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu", "replaces": site,
+            "launches": launches, "path": path, "max_abs_err": err,
+            "ms": t["ms"], "call_ms": t["call_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "shapes": shape, "timing": timing})
     return rows
 
 
@@ -714,6 +1139,8 @@ def main() -> int:
                       "plain_ms: per call incl. host"})
     # -- 7-9. the transformer path ---------------------------------------
     rows += transformer_phases(dev, card)
+    # -- 10-13. ssd_chunk, im2win_conv, the mamba2-130m path, ops -------
+    rows += ssd_conv_phases(dev, card)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,9 @@ same-family config the CPU tests use.
 
 Only the configs a ported path serves have their module here
 (:data:`PORTED`): the transformer lowering serves stablelm-1.6b and the
-whisper-base encoder.  The others of :data:`ARCH_IDS` raise until a
-slice needs them (ROADMAP.md queue 1)."""
+whisper-base encoder, and ``launch/serve.py`` serves mamba2-130m.  The
+others of :data:`ARCH_IDS` raise until a slice needs them (ROADMAP.md
+queue 1)."""
 from __future__ import annotations
 
 import importlib
@@ -24,7 +25,7 @@ ARCH_IDS = (
 )
 
 #: The configs of ARCH_IDS this package has.
-PORTED = ("stablelm_1_6b", "whisper_base")
+PORTED = ("stablelm_1_6b", "whisper_base", "mamba2_130m")
 
 
 def canon(arch: str) -> str:

@@ -1,0 +1,55 @@
+"""Public wrappers for the kernels (port of ``repro/kernels/ops.py``).
+
+The JAX package's wrappers jit the Pallas kernels and run them in
+interpret mode on a CPU.  Here each wrapper calls its kernel's dispatcher:
+CUDA tensors launch the hand-written kernel, CPU tensors take its plain
+version.  The device comes from the inputs; there is no ``interpret``.
+The TPU tile arguments (``block``, ``bm``, ``bf``) are refused: the CUDA
+kernels pick their own tiles, and a tile rule waits for the autotuner.
+``conv2d``'s ``window`` stays, because it sets the launch grid.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from .flash_attention import flash_attention
+from .grouped_matmul import grouped_matmul
+from .im2win_conv import im2win_conv
+from .tetris_matmul import tetris_matmul
+
+
+def _no_tiles(**tiles) -> None:
+    given = sorted(k for k, v in tiles.items() if v is not None)
+    if given:
+        raise ValueError(f"{given}: the CUDA kernels pick their own tiles "
+                         f"(a tile rule waits for the autotuner)")
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor,
+           block: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
+    """x (M, K) @ w (K, N) -> (M, N) f32 (``tetris_matmul``)."""
+    _no_tiles(block=block)
+    return tetris_matmul(x, w)
+
+
+def gmm(x: torch.Tensor, w: torch.Tensor, bm: Optional[int] = None,
+        bf: Optional[int] = None) -> torch.Tensor:
+    """x (G, M, D) @ w (G, D, F) -> (G, M, F) f32 (``grouped_matmul``)."""
+    _no_tiles(bm=bm, bf=bf)
+    return grouped_matmul(x, w)
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor,
+           window: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """x (B, H, W, C) pre-padded, w (kh, kw, C, O), stride 1 VALID ->
+    (B, o_h, o_w, O) f32 (``im2win_conv``)."""
+    return im2win_conv(x, w, window=window)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """q (BH, Sq, D); k/v (BH, Sk, D) -> (BH, Sq, D) f32
+    (``flash_attention``)."""
+    return flash_attention(q, k, v, causal=causal, q_offset=q_offset)

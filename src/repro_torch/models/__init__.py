@@ -1,6 +1,12 @@
-# Model configuration data of the port (the model code itself is not
-# ported yet): config.py holds the dataclasses the transformer lowering
-# (launch/transformer.py) reads.
-from .config import ArchConfig, BlockSpec, MoEConfig, SSMConfig, Stage
+# The model code of the port: config.py (the architecture dataclasses the
+# transformer lowering of launch/transformer.py reads, and param_count),
+# common.py and ssm.py (primitives and the Mamba-2 SSD mixer),
+# transformer.py (init and the train/prefill/decode forward of the ssd
+# family) and weights.py (the JAX package's params carried across).
+from . import transformer
+from .config import ArchConfig, BlockSpec, MoEConfig, Stage
+from .ssm import SSMConfig
+from .weights import params_from_numpy
 
-__all__ = ["ArchConfig", "BlockSpec", "MoEConfig", "SSMConfig", "Stage"]
+__all__ = ["ArchConfig", "BlockSpec", "MoEConfig", "SSMConfig", "Stage",
+           "params_from_numpy", "transformer"]

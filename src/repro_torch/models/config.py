@@ -8,21 +8,20 @@ mixer: 'gqa' (incl. MQA/MHA/SWA/local via window), 'mla', 'rec' (RG-LRU),
 ffn:   'dense' (gated silu), 'gelu' (whisper), 'moe', 'none'
 
 The dataclasses are copied field for field so a config reads the same
-in both packages.  :class:`MoEConfig`, :class:`SSMConfig` and
-:func:`pad_vocab` are plain copies of the definitions the JAX package
-keeps beside its model code (``models/moe.py``, ``models/ssm.py``,
-``models/common.py``); that code is not ported yet, and neither is
-``param_count``.
+in both packages.  :class:`SSMConfig` and :func:`pad_vocab` live beside
+the model code that uses them (``ssm.py``, ``common.py``) and are
+re-exported here, as in the JAX package.  The model code
+(``transformer.py``) runs the ``ssd`` family; ``param_count`` counts
+from its init shapes, so it is defined for the families it runs.
+:class:`MoEConfig` is a plain copy: the MoE code is not ported yet.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
-
-def pad_vocab(v: int, multiple: int = 256) -> int:
-    """Pad vocab so the embedding shards cleanly over the model axis."""
-    return ((v + multiple - 1) // multiple) * multiple
+from .common import pad_vocab
+from .ssm import SSMConfig
 
 
 @dataclass(frozen=True)
@@ -33,17 +32,6 @@ class MoEConfig:
     n_shared: int = 0            # shared (always-on) experts, dsv2-style
     capacity_factor: float = 1.25
     chunk: int = 512
-
-
-@dataclass(frozen=True)
-class SSMConfig:
-    d_inner: int
-    n_heads: int
-    head_dim: int
-    d_state: int = 128
-    n_groups: int = 1
-    conv_width: int = 4
-    chunk: int = 256
 
 
 @dataclass(frozen=True)
@@ -107,3 +95,14 @@ class ArchConfig:
     @property
     def padded_vocab(self) -> int:
         return pad_vocab(self.vocab)
+
+    def param_count(self) -> int:
+        """Parameter count from the port's init shapes (``meta`` device)."""
+        from . import transformer
+        return transformer.count_params(self)
+
+    def active_param_count(self) -> int:
+        """Parameters a token touches: all of them, since no ported
+        family routes tokens to experts (``moe`` init raises)."""
+        from . import transformer
+        return transformer.count_params(self)

@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
 the sdk kernels, tetris_matmul, grouped_matmul and flash_attention, the
-last also through the attention stage at a ragged length.  Marked
+last also through the attention stage at a ragged length, ssd_chunk
+(also through the SSD mixer) and im2win_conv (also through the ops
+surface, with each of its kernels).  Marked
 ``cuda``: without a CUDA device each test skips.  On the card:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
@@ -158,3 +160,129 @@ def test_attention_stage_ragged_launches_kernel(cuda, m, heads, causal):
     assert fa.flash_attention_cuda.launches == 1
     _close(got, glue.attention_stage(y, heads, causal, plain=True))
     assert fa.flash_attention_cuda.launches == 1
+
+
+def _ssd_inputs(cuda, b, s, h, p, g, n, dtype=torch.float32, seed=12):
+    """The JAX kernel test's distributions (dt > 0 small, a_log ~ 0)."""
+    rng = np.random.RandomState(seed)
+
+    def dev(a):
+        return torch.as_tensor(a.astype(np.float32), device=cuda).to(dtype)
+    return (dev(rng.randn(b, s, h, p)),
+            dev(np.abs(rng.randn(b, s, h)) * 0.1 + 0.05),
+            torch.as_tensor((rng.randn(h) * 0.3).astype(np.float32),
+                            device=cuda),
+            dev(rng.randn(b, s, g, n) * 0.3), dev(rng.randn(b, s, g, n) * 0.3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,chunk", [
+    ((2, 128, 4, 16, 4, 8), 128), ((2, 128, 4, 16, 4, 8), 32),
+    ((1, 512, 4, 64, 1, 128), 256), ((2, 100, 3, 32, 1, 16), 100),
+    ((1, 256, 4, 128, 2, 256), 128), ((2, 96, 6, 40, 3, 24), 48)])
+def test_ssd_chunk_matches_plain(cuda, shape, chunk):
+    """f32: y and the states within RTOL of their max; G < H read in
+    place; L = 100 is no multiple of the 64-row tile."""
+    from repro_torch.kernels import ssd_chunk as sc
+    args = _ssd_inputs(cuda, *shape)
+    sc.reset_counts()
+    y, st = sc.ssd_chunk(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert sc.ssd_chunk_cuda.launches == 1
+    want_y, want_s = sc.ssd_chunk_plain(*args, chunk=chunk)
+    _close(y, want_y)
+    _close(st, want_s)
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_bf16_and_strided_views(cuda):
+    """bf16 inputs as the model passes them (views of one projection,
+    unit last stride): y within one bf16 rounding (2**-8) of max|y| of the
+    plain version run in f32 on the same values; states (f32 both) within
+    RTOL."""
+    from repro_torch.kernels import ssd_chunk as sc
+    b, s, h, p, g, n = 2, 512, 4, 64, 1, 128
+    x, dt, a_log, bm, cm = _ssd_inputs(cuda, b, s, h, p, g, n, torch.bfloat16)
+    proj = torch.cat([x.reshape(b, s, h * p), bm.reshape(b, s, n),
+                      cm.reshape(b, s, n)], -1)
+    xv = proj[..., :h * p].reshape(b, s, h, p)
+    bv = proj[..., h * p:h * p + n].reshape(b, s, g, n)
+    cv = proj[..., h * p + n:].reshape(b, s, g, n)
+    assert not xv.is_contiguous()
+    y, st = sc.ssd_chunk(xv, dt, a_log, bv, cv, chunk=256)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
+    want_y, want_s = sc.ssd_chunk_plain(
+        *(a.float() for a in (x, dt)), a_log, bm.float(), cm.float(),
+        chunk=256)
+    scale = float(want_y.abs().max())
+    assert float((y.float() - want_y).abs().max()) <= 2.0 ** -8 * scale
+    _close(st, want_s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [2000, 100])
+def test_ssd_chunked_kernel_matches_plain(cuda, s):
+    """The mixer at a ragged prompt (padded to the chunk) and at S < chunk
+    (L = S), kernel against plain=True."""
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.models import ssm
+    cfg = ssm.SSMConfig(d_inner=256, n_heads=4, head_dim=64, d_state=128,
+                        chunk=256)
+    x, dt, a_log, b, c = _ssd_inputs(cuda, 2, s, 4, 64, 1, 128)
+    d = torch.ones(4, device=cuda)
+    sc.reset_counts()
+    y, st = ssm.ssd_chunked(x, dt, a_log, b, c, d, cfg)
+    want_y, want_s = ssm.ssd_chunked(x, dt, a_log, b, c, d, cfg, plain=True)
+    torch.cuda.synchronize()
+    assert sc.ssd_chunk_cuda.launches == 1
+    _close(y, want_y)
+    _close(st, want_s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [
+    (2, 18, 18, 24, 3, 32), (1, 12, 12, 8, 5, 16), (2, 9, 9, 32, 3, 64),
+    (1, 7, 7, 3, 3, 5), (2, 28, 28, 32, 5, 96), (2, 5, 5, 64, 5, 256),
+    (2, 14, 14, 32, 5, 128), (1, 40, 40, 8, 3, 70)])
+def test_im2win_conv_matches_plain(cuda, cfg):
+    """The JAX kernel test's shapes and layers that need channel slices
+    (Incep-3b, CNN8-7, Incep-4e) or an oc that 64 does not divide; the
+    blocks launched are the grid's n_cycles."""
+    from repro_torch.kernels import im2win_conv as iw
+    b, h, w, c, k, o = cfg
+    x = _rand(cuda, b, h, w, c, seed=13)
+    kk = _rand(cuda, k, k, c, o, seed=14) * 0.1
+    iw.reset_counts()
+    y = iw.im2win_conv(x, kk)
+    torch.cuda.synchronize()
+    o_h, o_w, th, tw = iw.conv_window(x.shape, kk.shape)
+    assert iw.im2win_conv_cuda.launches == 1
+    assert iw.im2win_conv_cuda.blocks == iw.n_cycles(o_h, o_w, th, tw, b)
+    _close(y, iw.im2win_conv_plain(x, kk))
+    yw = iw.im2win_conv(x, kk, window=(3, 5))          # clamped borders
+    torch.cuda.synchronize()
+    _close(yw, iw.im2win_conv_plain(x, kk))
+
+
+@pytest.mark.cuda
+def test_ops_surface_launches_each_kernel(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import im2win_conv as iw
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import tetris_matmul as tm
+    for mod in (fa, gm, iw, tm):
+        mod.reset_counts()
+    x, w = _rand(cuda, 130, 72, seed=15), _rand(cuda, 72, 40, seed=16)
+    _close(ops.matmul(x, w), ref.matmul_ref(x, w))
+    g, gw = _rand(cuda, 3, 50, 24, seed=17), _rand(cuda, 3, 24, 30, seed=18)
+    _close(ops.gmm(g, gw), ref.grouped_matmul_ref(g, gw))
+    q = _rand(cuda, 4, 100, 32, seed=19)
+    _close(ops.attention(q, q, q), ref.flash_attention_ref(q, q, q))
+    xc, kc = _rand(cuda, 2, 9, 9, 16, seed=20), _rand(cuda, 3, 3, 16, 8,
+                                                       seed=21)
+    _close(ops.conv2d(xc, kc), ref.conv2d_ref(xc, kc))
+    assert (tm.tetris_matmul_cuda.launches, gm.grouped_matmul_cuda.launches,
+            fa.flash_attention_cuda.launches,
+            iw.im2win_conv_cuda.launches) == (1, 1, 1, 1)

@@ -40,9 +40,14 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.cnn, repro_torch.kernels.sdk_conv, "
             "repro_torch.kernels.matmul_exec, "
             "repro_torch.kernels.flash_attention, "
-            "repro_torch.launch.transformer, repro_torch.configs\n"
+            "repro_torch.launch.transformer, repro_torch.configs, "
+            "repro_torch.launch.serve, repro_torch.launch.steps, "
+            "repro_torch.models.transformer, repro_torch.models.weights, "
+            "repro_torch.kernels.ops, repro_torch.kernels.ref, "
+            "repro_torch.kernels.ssd_chunk, repro_torch.kernels.im2win_conv\n"
             "from repro_torch.configs import get_config\n"
             "get_config('stablelm_1_6b'); get_config('whisper_base')\n"
+            "get_config('mamba2_130m').param_count()\n"
             "from repro_torch.kernels import _build\n"
             "assert not _build._loaded, 'a kernel was built at import'\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -57,7 +62,7 @@ def test_entry_points_need_a_card(monkeypatch):
     from repro_torch.core import ArrayConfig, map_net, networks
     from repro_torch.device import resolve_device
     from repro_torch.exec import compile_plan
-    from repro_torch.launch import serve_cnn
+    from repro_torch.launch import serve, serve_cnn
     from repro_torch.launch.transformer import transformer_mapping
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     net = map_net("cnn8", networks.cnn8(), ArrayConfig(512, 512),
@@ -70,6 +75,7 @@ def test_entry_points_need_a_card(monkeypatch):
                  lambda: compile_plan(net),
                  lambda: serve_cnn.serve(net, 2, 1),
                  lambda: serve_cnn.main(["--steps", "1"]),
+                 lambda: serve.main(["--smoke", "--gen", "1"]),
                  lambda: kernels_from_numpy([np.zeros((1, 1, 1, 1))])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -90,3 +96,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         for fn in (sk.sdk_whole, sk.sdk_window):
             with pytest.raises(ValueError, match="CUDA tensor"):
                 fn(c.xt, c.kt, c.geom)
+    from repro_torch.kernels import im2win_conv, ssd_chunk
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        im2win_conv.im2win_conv_cuda(x.permute(0, 2, 3, 1), k)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ssd_chunk.ssd_chunk_cuda(torch.zeros(1, 8, 2, 4), torch.zeros(1, 8, 2),
+                                 torch.zeros(2), torch.zeros(1, 8, 1, 4),
+                                 torch.zeros(1, 8, 1, 4), chunk=8)
+    assert im2win_conv.im2win_conv_cuda.launches == 0
+    assert ssd_chunk.ssd_chunk_cuda.launches == 0

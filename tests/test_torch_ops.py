@@ -1,0 +1,115 @@
+"""The port's kernel API (``kernels/ops.py``, ``kernels/ref.py``) against
+the JAX package's on the CPU: the im2win window rule and grid size, the
+convolution (plain route) against ``ref.conv2d_ref`` on the JAX kernel
+test's shapes and the paper's 14 layers, and matmul, gmm and attention
+against the JAX ``ops`` (Pallas in interpret mode).  The JAX im2win
+kernel itself does not trace on this JAX (ROADMAP.md queue 3), so the
+convolution is held to the JAX oracle."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
+import torch                                                    # noqa: E402
+
+from _torch_parity import assert_close, t                       # noqa: E402
+from repro.kernels import im2win_conv as j_im2win               # noqa: E402
+from repro.kernels import ops as j_ops                          # noqa: E402
+from repro.kernels import ref as j_ref                          # noqa: E402
+from repro_torch.core import networks                           # noqa: E402
+from repro_torch.kernels import im2win_conv, ops, ref           # noqa: E402
+
+#: f32 both sides, the same products summed in another order
+RTOL = 1e-5
+#: test_kernels.py's im2win cases: (b, h, w, c, k, o)
+KERNEL_CFGS = [(2, 18, 18, 24, 3, 32), (1, 12, 12, 8, 5, 16),
+               (2, 9, 9, 32, 3, 64), (1, 7, 7, 3, 3, 5)]
+#: the paper's layers ops.conv2d serves: cnn8 and the Inception 5x5s
+LAYERS = networks.cnn8() + networks.inception()
+
+
+def test_select_window_and_cycles_match_jax():
+    for o_h in (1, 3, 5, 7, 10, 16, 24, 33, 64, 100):
+        for k in (1, 3, 5):
+            for c, oc in ((3, 5), (16, 32), (64, 256), (512, 512)):
+                for budget in (64 * 1024, 4 * 1024 * 1024):
+                    w = im2win_conv.select_window(o_h, o_h + 3, k, c, oc,
+                                                  budget)
+                    assert w == j_im2win.select_window(o_h, o_h + 3, k, c, oc,
+                                                       budget)
+                    th, tw = min(w[0], o_h), min(w[1], o_h + 3)
+                    for b in (1, 8):
+                        assert im2win_conv.n_cycles(o_h, o_h + 3, th, tw, b) \
+                            == j_im2win.n_cycles(o_h, o_h + 3, th, tw, b)
+
+
+def _conv_case(rng, b, h, w, c, k, o):
+    return (rng.randn(b, h, w, c).astype(np.float32),
+            (rng.randn(k, k, c, o) * 0.1).astype(np.float32))
+
+
+@pytest.mark.parametrize("cfg", KERNEL_CFGS)
+def test_conv2d_matches_jax_ref(cfg):
+    x, w = _conv_case(np.random.RandomState(1), *cfg)
+    want = np.asarray(j_ref.conv2d_ref(jnp.asarray(x), jnp.asarray(w)))
+    assert_close(ops.conv2d(t(x), t(w)), want, RTOL)
+    assert_close(ref.conv2d_ref(t(x), t(w)), want, RTOL)
+
+
+@pytest.mark.parametrize("layer", LAYERS, ids=[lay.name for lay in LAYERS])
+def test_conv2d_paper_layers_match_jax_ref(layer):
+    """Batch 1 (the card checks batch 8): already padded, stride 1."""
+    assert layer.stride == 1 and layer.groups == 1
+    x, w = _conv_case(np.random.RandomState(2), 1, layer.i_h, layer.i_w,
+                      layer.ic, layer.k_h, layer.oc)
+    want = np.asarray(j_ref.conv2d_ref(jnp.asarray(x), jnp.asarray(w)))
+    assert_close(ops.conv2d(t(x), t(w)), want, RTOL)
+
+
+def test_conv2d_window_sets_the_grid_only():
+    x, w = _conv_case(np.random.RandomState(3), *KERNEL_CFGS[0])
+    want = ops.conv2d(t(x), t(w))
+    assert torch.equal(ops.conv2d(t(x), t(w), window=(5, 7)), want)
+    with pytest.raises(ValueError, match="channels"):
+        ops.conv2d(t(x), t(w[:, :, :-1]))
+
+
+@pytest.mark.parametrize("mnk", [(256, 256, 256), (100, 60, 48)])
+def test_matmul_matches_jax_ops(mnk):
+    m, n, k = mnk
+    rng = np.random.RandomState(4)
+    x, w = rng.randn(m, k).astype(np.float32), rng.randn(k, n).astype(
+        np.float32)
+    want = np.asarray(j_ops.matmul(jnp.asarray(x), jnp.asarray(w)))
+    assert_close(ops.matmul(t(x), t(w)), want, RTOL)
+    assert_close(ref.matmul_ref(t(x), t(w)), want, RTOL)
+
+
+def test_gmm_matches_jax_ops():
+    rng = np.random.RandomState(5)
+    x = rng.randn(4, 64, 32).astype(np.float32)
+    w = rng.randn(4, 32, 48).astype(np.float32)
+    want = np.asarray(j_ops.gmm(jnp.asarray(x), jnp.asarray(w)))
+    assert_close(ops.gmm(t(x), t(w)), want, RTOL)
+    assert_close(ref.grouped_matmul_ref(t(x), t(w)), want, RTOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_matches_jax_ops(causal):
+    rng = np.random.RandomState(6)
+    q, k, v = (rng.randn(3, 128, 32).astype(np.float32) for _ in range(3))
+    want = np.asarray(j_ops.attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                      causal=causal))
+    assert_close(ops.attention(t(q), t(k), t(v), causal=causal), want, RTOL)
+    assert_close(ref.flash_attention_ref(t(q), t(k), t(v), causal=causal),
+                 want, RTOL)
+
+
+def test_tile_arguments_are_refused():
+    x = torch.zeros(8, 8)
+    with pytest.raises(ValueError, match="block"):
+        ops.matmul(x, x, block=(8, 8, 8))
+    g = torch.zeros(2, 8, 8)
+    with pytest.raises(ValueError, match="bf"):
+        ops.gmm(g, g, bf=8)
