@@ -11,14 +11,19 @@ Phases, each of which raises on failure (exit code != 0):
    into ``build/kernels/``;
 3. kernels vs plain — both sdk kernels against ``sdk_conv_plain`` on the
    card, on every sdk layer of cnn8, DN40-b2l3, Incep-3b and a stride-2
-   layer at batch 8, with launched steps held to ``mapping.cycles``;
+   layer at batch 8, with launched steps held to ``mapping.cycles`` and
+   the window kernel's launch layout (images, run, columns, blocks) per
+   tile printed;
 4. main path — ``repro_torch.launch.serve_cnn.main`` serves cnn8 with the
    ``auto`` policy; the plan must be reference + five sdk layers, the
    whole kernel's launch count must grow by (warmup + steps) x its
    launches per forward, and a forward must match ``execute_oracle``;
 5. window path — the cnn8 forward with ``block="window"`` and the
-   densenet40 forward (policy auto) against ``execute_oracle``;
-6. sdk times at the main path's shapes;
+   densenet40 forward (policy auto) against ``execute_oracle``, the
+   window kernel's launches counted per net (under ``auto`` no served
+   mapping reaches it below batch 128, so they all come from cnn8);
+6. sdk times at the main path's shapes, and the window kernel forced on
+   Incep-3b at batch 8 (the kind of layer it was built for);
 7. transformer kernels vs plain — tetris_matmul, grouped_matmul and
    flash_attention against their plain versions at the shapes of the
    transformer path and at ragged tails, causal or not, with a
@@ -44,8 +49,9 @@ Phases, each of which raises on failure (exit code != 0):
     bf16, and through the SSD mixer against ``plain=True``;
     ``ops.conv2d`` (im2win_conv) on the 6 cnn8 and 8 Inception 5x5 layers
     at batch 8 with every count at 0 just before and read just after,
-    blocks held to ``n_cycles``, each against ``F.conv2d``, and at the
-    JAX kernel test's shapes;
+    grid steps held to ``n_cycles`` and the blocks the launches report to
+    steps x cluster (each layer's cluster and block tile printed), each
+    against ``F.conv2d``, and at the JAX kernel test's shapes;
 11. mamba2-130m path — ``launch.serve.generate`` at full width (24
     blocks, weights drawn on the card from the seed) with batch 4, prompt
     2048, gen 32, every count at 0 just before and read just after:
@@ -205,6 +211,14 @@ def conv_bound_ms(mapping) -> tuple:
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def window_layout(geom) -> tuple:
+    """(b_chunk, run, oc_b, blocks) of the window kernel's launch on one
+    tile at BATCH."""
+    from repro_torch.kernels import sdk_conv as sk
+    d = sk.window_launch_dims(BATCH, geom)
+    return d.b_chunk, d.run, d.oc_b, d.blocks
 
 
 def max_err(y, ref) -> tuple:
@@ -610,10 +624,11 @@ def ssd_kernel_checks(dev) -> float:
 
 def conv_path(dev) -> tuple:
     """Phase 10, im2win_conv: ``ops.conv2d`` over the paper's 14 layers at
-    batch 8, every count at 0 just before and read just after, the blocks
-    held to n_cycles; each output against F.conv2d (the plain version),
-    then the JAX kernel test's shapes.  Returns (launches on the path,
-    largest error, the layers' inputs)."""
+    batch 8, every count at 0 just before and read just after, the grid
+    steps held to n_cycles and the blocks to steps x cluster; each output
+    against F.conv2d (the plain version), then the JAX kernel test's
+    shapes.  Returns (launches on the path, largest error, the layers'
+    inputs, {"steps", "blocks", "cluster"} of the path)."""
     import numpy as np
     import torch
     from repro_torch.core import networks
@@ -624,30 +639,42 @@ def conv_path(dev) -> tuple:
     data = [(lay, randn(rng, (BATCH, lay.i_h, lay.i_w, lay.ic), dev),
              randn(rng, (lay.k_h, lay.k_w, lay.ic, lay.oc), dev, 0.1))
             for lay in layers]
-    cycles = 0
+    cycles, want_blocks, clusters = 0, 0, []
     for lay, x, w in data:
         o_h, o_w, th, tw = iw.conv_window(x.shape, w.shape)
-        cycles += iw.n_cycles(o_h, o_w, th, tw, BATCH)
+        cluster, tile = iw.cluster_split(th, tw, lay.oc, lay.ic, lay.k_h,
+                                         lay.k_w)
+        steps = iw.n_cycles(o_h, o_w, th, tw, BATCH)
+        cycles += steps
+        want_blocks += steps * cluster
+        clusters.append(cluster)
+        print(f"[conv] {lay.name} window ({th},{tw}) x O={lay.oc}: {steps} "
+              f"steps x cluster {cluster}, block tile {tile.pos} positions "
+              f"x {tile.oc} channels ({tile.co} channel parts), cs "
+              f"{tile.cs}, ks {tile.ks}, smem {tile.smem} B")
     reset_all_counts()
     outs = [ops.conv2d(x, w) for _, x, w in data]
     torch.cuda.synchronize()
     counts = launch_counts()
-    blocks = iw.im2win_conv_cuda.blocks
+    steps, blocks = iw.im2win_conv_cuda.steps, iw.im2win_conv_cuda.blocks
     print(f"[conv] ops.conv2d over {len(data)} layers at batch {BATCH}: "
-          f"im2win_conv launches={counts['im2win_conv']} blocks={blocks} "
-          f"n_cycles={cycles}; other launches "
+          f"im2win_conv launches={counts['im2win_conv']} steps={steps} "
+          f"n_cycles={cycles} blocks launched={blocks} (steps x cluster "
+          f"{want_blocks}); other launches "
           f"{ {k: v for k, v in counts.items() if k != 'im2win_conv'} }")
-    if counts["im2win_conv"] != len(data) or blocks != cycles or any(
-            v for k, v in counts.items() if k != "im2win_conv"):
+    if counts["im2win_conv"] != len(data) or steps != cycles \
+            or blocks != want_blocks or any(
+                v for k, v in counts.items() if k != "im2win_conv"):
         raise AssertionError("the ops.conv2d path did not launch exactly one "
-                             "im2win_conv per layer over n_cycles blocks")
+                             "im2win_conv per layer over n_cycles clusters "
+                             "of cluster_split's size")
     worst = 0.0
-    for (lay, x, w), y in zip(data, outs):
+    for (lay, x, w), y, cluster in zip(data, outs, clusters):
         o_h, o_w, th, tw = iw.conv_window(x.shape, w.shape)
         worst = max(worst, check(
             f"im2win_conv {lay.name} batch {BATCH} window ({th},{tw}) "
-            f"blocks={iw.n_cycles(o_h, o_w, th, tw, BATCH)}", y,
-            iw.im2win_conv_plain(x, w), KERNEL_RTOL))
+            f"steps={iw.n_cycles(o_h, o_w, th, tw, BATCH)} cluster="
+            f"{cluster}", y, iw.im2win_conv_plain(x, w), KERNEL_RTOL))
     for b, h, w_, c, k, o in ((2, 18, 18, 24, 3, 32), (1, 12, 12, 8, 5, 16),
                               (2, 9, 9, 32, 3, 64), (1, 7, 7, 3, 3, 5)):
         x = randn(rng, (b, h, w_, c), dev)
@@ -656,7 +683,8 @@ def conv_path(dev) -> tuple:
             f"im2win_conv JAX test cfg {(b, h, w_, c, k, o)}",
             iw.im2win_conv_cuda(x, w), iw.im2win_conv_plain(x, w),
             KERNEL_RTOL))
-    return counts["im2win_conv"], worst, data
+    grid = {"steps": steps, "blocks": blocks, "cluster": clusters}
+    return counts["im2win_conv"], worst, data, grid
 
 
 def mamba_phase(dev, card: str) -> int:
@@ -911,7 +939,7 @@ def ssd_conv_phases(dev, card: str) -> list:
     """Phases 10-13; returns ssd_chunk's and im2win_conv's rows of the
     kernels line."""
     ssd_err = ssd_kernel_checks(dev)
-    conv_launches, conv_err, conv_data = conv_path(dev)
+    conv_launches, conv_err, conv_data, conv_grid = conv_path(dev)
     mamba_launches = mamba_phase(dev, card)
     ops_phase(dev)
     times = time_new_kernels(conv_data, dev, card)
@@ -927,7 +955,8 @@ def ssd_conv_phases(dev, card: str) -> list:
              "the masked-decay product and the chunk states", SSD_SITE),
             ("im2win_conv", conv_launches, conv_err,
              "ops.conv2d over cnn8 + Inception 5x5 layers at batch 8",
-             "the 14 layers at batch 8, summed", IM2WIN_SITE)):
+             "the 14 layers at batch 8, summed; one cluster per grid step",
+             IM2WIN_SITE)):
         t = times[name]
         rows.append({
             "name": name, "route": "cuda",
@@ -937,6 +966,9 @@ def ssd_conv_phases(dev, card: str) -> list:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shapes": shape, "timing": timing})
+    # the path's grid steps (== n_cycles), blocks (== steps x cluster) and
+    # each layer's cluster, in layer order
+    rows[-1].update(conv_grid)
     return rows
 
 
@@ -1004,11 +1036,15 @@ def main() -> int:
             torch.cuda.synchronize()
             err, rel, scale = max_err(y, ref)
             ok = rel <= KERNEL_RTOL and fn.steps == m.cycles
+            dims = ""
+            if mode == "window":
+                dims = " (b_chunk, run, oc_b, blocks) " + " ".join(
+                    str(window_layout(sk.tile_geom(m, t))) for t in m.tiles)
             print(f"[kernel] {m.layer.name:10s} {mode:6s} tiles="
                   f"{len(m.tiles)} G={m.group} launches={fn.launches} "
                   f"steps={fn.steps} cycles={m.cycles} max_abs_err={err:.3e}"
                   f" rel={rel:.3e} (tol {KERNEL_RTOL:g} of max|y|={scale:.3f})"
-                  f" {'ok' if ok else 'FAIL'}")
+                  f" {'ok' if ok else 'FAIL'}{dims}")
             if not ok:
                 raise AssertionError(f"{m.layer.name} {mode}: kernel vs "
                                      f"plain or steps vs cycles failed")
@@ -1060,25 +1096,27 @@ def main() -> int:
           f"{stats.s_per_batch * 1e3:.4f} ms/batch on {card}")
 
     # -- 5. window path -----------------------------------------------------
-    sk.reset_counts()
     nets = (("cnn8", cnn8, "window"), ("densenet40", dn40, "auto"))
-    outs = []
+    win_launches = {"whole": 0, "window": 0}
     for name, net, block in nets:
         p = compile_plan(net, executor_policy="auto", batch=BATCH,
                          device=dev, block=block)
         ks, xh = serve_cnn.serving_inputs(net, BATCH, SEED, dev)
         xs = torch.as_tensor(xh, device=dev)
-        outs.append((name, block, p, execute_plan(p, ks, xs), ks, xs))
-    torch.cuda.synchronize()
-    win_launches = {"whole": sk.sdk_whole.launches,
-                    "window": sk.sdk_window.launches}
-    for name, block, p, y, ks, xs in outs:
+        sk.reset_counts()
+        y = execute_plan(p, ks, xs)
+        torch.cuda.synchronize()
+        net_launches = {"whole": sk.sdk_whole.launches,
+                        "window": sk.sdk_window.launches}
+        for k in win_launches:
+            win_launches[k] += net_launches[k]
         r = execute_oracle(p, ks, xs)
         err, rel, scale = max_err(y, r)
         print(f"[window] {name} block={block} executors="
-              f"{'/'.join(sorted(set(p.executors)))} forward vs oracle "
-              f"max_abs_err={err:.3e} rel={rel:.3e} (tol {FORWARD_RTOL:g} "
-              f"of max|y|={scale:.3f})")
+              f"{'/'.join(sorted(set(p.executors)))}: launches whole="
+              f"{net_launches['whole']} window={net_launches['window']}; "
+              f"forward vs oracle max_abs_err={err:.3e} rel={rel:.3e} (tol "
+              f"{FORWARD_RTOL:g} of max|y|={scale:.3f})")
         if not (torch.isfinite(y).all() and rel <= FORWARD_RTOL):
             raise AssertionError(f"{name} block={block} forward disagrees "
                                  f"with the oracle")
@@ -1102,7 +1140,8 @@ def main() -> int:
         for mode, fn in (("whole", sk.sdk_whole), ("window", sk.sdk_window)):
             cs = sk.tile_calls(m, x, k, block=mode)
             run = (lambda fn=fn, cs=cs: [fn(c.xt, c.kt, c.geom) for c in cs])
-            # two kernels (zero fill, sdk) per tile call
+            # one kernel per tile call (no zero fill: every served tile
+            # covers its output)
             t[mode] = device_ms(run, iters=max(4, 400 // (2 * len(cs))))
             t[mode + "_call"] = call_ms(run, iters=200)
         cs = sk.tile_calls(m, x, k)
@@ -1120,6 +1159,19 @@ def main() -> int:
               f"{t['window_call']:.5f} ms, plain {t['plain']:.5f} ms; "
               f"F.conv2d {t['library']:.5f} ms; bound {t['bound']:.6f} ms "
               f"({bound_by[m.layer.name]}) on {card}")
+    incep3b = next(m for m in cases if m.layer.name == "Incep-3b")
+    x, k = layer_data(incep3b, rng, dev)
+    cs = sk.tile_calls(incep3b, x, k, block="window")
+    t_win = device_ms(lambda: [sk.sdk_window(c.xt, c.kt, c.geom)
+                               for c in cs], iters=50)
+    w_oihw = k.permute(3, 2, 0, 1).contiguous()
+    t_lib = device_ms(lambda: torch.nn.functional.conv2d(
+        x, w_oihw, groups=incep3b.group), iters=100)
+    b3, b3_by = conv_bound_ms(incep3b)
+    print(f"[time] sdk_window forced on Incep-3b batch {BATCH} ({len(cs)} "
+          f"launches, G={incep3b.group}, (b_chunk, run, oc_b, blocks) "
+          f"{window_layout(cs[0].geom)}): device {t_win:.5f} ms, F.conv2d "
+          f"{t_lib:.5f} ms, bound {b3:.6f} ms ({b3_by}) on {card}")
     by = ("operations" if list(bound_by.values()).count("operations")
           * 2 > len(bound_by) else "bytes")
     for name, mode, site, launches in (
@@ -1130,7 +1182,8 @@ def main() -> int:
             "source": "src/repro_torch/csrc/sdk_conv.cu",
             "replaces": site, "launches": launches,
             "path": ("serve cnn8 --policy auto" if mode == "whole" else
-                     "cnn8 block=window + densenet40 auto forwards"),
+                     "cnn8 forward with block=window (the densenet40 auto "
+                     "forward launches none)"),
             "max_abs_err": errors[mode], "ms": totals[mode],
             "call_ms": totals[mode + "_call"], "plain_ms": totals["plain"], "bound_ms": totals["bound"],
             "bound_by": by, "library_ms": totals["library"],

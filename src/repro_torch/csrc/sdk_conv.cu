@@ -18,9 +18,11 @@
 // raster (nw = ny*nx), whose origin (y0, x0) is border-clamped to the
 // stride grid exactly as _window_origin does.  x is (b, ic_pad, i_h, i_w),
 // w is (k_h, k_w, ic_pad, oc_pad) and out is (ar_c, b, oc_pad, o_h, o_w),
-// all contiguous f32.  The wrapper zero-fills out before the launch (the
-// counterpart of the TPU kernel's `@pl.when(wi == 0)` init) and sums the
-// ar_c slots afterwards.
+// all contiguous f32.  Where the window raster writes every output
+// position (TileGeom.covers_output: every served mapping) the wrapper
+// leaves out uninitialised; elsewhere it zero-fills it (the counterpart of
+// the TPU kernel's `@pl.when(wi == 0)` init).  It sums the ar_c slots
+// afterwards.
 //
 // Index space.  The TPU grid (ar_c, ac_c, nw) runs in order on one core;
 // here its steps become blocks that run in parallel and in any order,
@@ -30,20 +32,26 @@
 // compute it from the same inputs in the same (dy, dx, c) order and store
 // bit-identical values, so the race is benign.
 //
-// What bounds it.  Per output element the kernel does k_h*k_w*ic_t FMAs
+// What bounds it.  Per output element the kernels do k_h*k_w*ic_t FMAs
 // in f32 on the CUDA cores (no tensor cores: the f32 result must match
-// the plain version to ~1e-5 relative), and each of those reads one x
-// value and one w value.  At the main path's shapes (cnn8 at batch 8)
-// the layers are small: a few MFLOP each, so a launch is bound by latency
-// and by the card not being filled, not by bytes or FLOP/s.  The design
-// keeps each thread on one output element with px fastest, so stores and
-// x loads are coalesced along a row and the w load is a broadcast across
-// the row's threads; the window kernel stages each window patch in shared
-// memory so a patch is read from device memory once per block.  wgmma,
-// TMA and bf16 are later work.
+// the plain version to ~1e-5 relative).  At the main path's shapes (cnn8
+// at batch 8) the layers are small: a few MFLOP each, so a launch is
+// bound by latency and by the card not being filled, not by bytes or
+// FLOP/s.  The whole kernel keeps each thread on one output element with
+// px fastest, so stores and x loads are coalesced along a row and the w
+// load is a broadcast across the row's threads.  The window kernel is
+// laid out to fill the card: kernels/sdk_conv.py::window_launch_dims
+// gives a block one window and one image, and splits oc_t into column
+// parts, until a launch has about 132 blocks; it gives a block a run of
+// windows (and the double buffer) only past two waves.  A block stages
+// its kernel block and the patch in shared memory and runs
+// window_product.cuh's register-tiled product, which im2win_conv.cu
+// shares.  wgmma, TMA and bf16 are later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "window_product.cuh"
 
 // Geometry of one (group, tile) launch; mirrors SdkGeom in
 // src/repro_torch/kernels/sdk_conv.py field for field.
@@ -57,6 +65,8 @@ struct SdkGeom {
   int lim_y, lim_x;               // border clamps (on the stride grid)
   int b_chunk;                    // images per block
   int run;                        // window kernel: windows per block
+  int oc_b;                       // window kernel: oc columns per block
+  int ks;                         // window kernel: thread groups on K
 };
 
 static constexpr int kThreads = 256;
@@ -121,32 +131,54 @@ sdk_whole_kernel(const float* __restrict__ x, const float* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// Window kernel: each block walks `run` consecutive windows of one
-// (ci, oi) pass for one batch chunk.  The window patch
-// (b_chunk, ic_t, pw_h, pw_w) is staged into one of two shared-memory
-// slots with cp.async; the copy of window t+1 is in flight while window t
-// is computed (the TPU kernel's two VMEM slots and DMA semaphores).
-// Output tiles are stored straight to device memory: on this card a
-// coalesced store needs no staging slot.
-// grid = (ar_c*ac_c, ceil(nw / run), ceil(b / b_chunk)).
+// Window kernel: each block computes oc_b of the oc_t columns of one
+// (ci, oi) pass, for `run` consecutive windows and one chunk of b_chunk
+// images.  It stages its kernel block (k_h*k_w x ic_t x oc_b) in shared
+// memory once, and each window's patch, b_chunk images of
+// (pw_h, pw_w, ic_t) channel fastest, with cp.async; with run > 1 the copy
+// of window t+1 is in flight in a second slot while window t is computed
+// (the TPU kernel's two VMEM slots and DMA semaphores).  The product is
+// window_product.cuh's, its rows the (image, output position) pairs of
+// the window at stride s.  Output tiles are stored straight to device
+// memory.
+// grid = (ar_c*ac_c*parts, ceil(nw / run), ceil(b / b_chunk)) with
+// parts = ceil(oc_t / oc_b).
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-               :: "r"(dst), "l"(gmem));
+// Shared-memory layout of one window-kernel block, in floats.
+struct WinLayout {
+  int cp, pix, img;                   // staged channels, pixel stride, image
+  long long slot, slots, ws, scratch;
+  __host__ __device__ long long total() const {
+    return slot * slots + ws + scratch;
+  }
+};
+
+__host__ __device__ inline wp::Split win_split(const SdkGeom& g) {
+  return wp::make_split(g.b_chunk * g.py * g.px, g.oc_b, g.ks);
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__host__ __device__ inline WinLayout win_layout(const SdkGeom& g) {
+  WinLayout l;
+  l.cp = wp::round4(g.ic_t);
+  l.pix = wp::pixel_stride(l.cp);
+  l.img = g.pw_h * g.pw_w * l.pix;
+  l.slot = (long long)g.b_chunk * l.img;
+  l.slots = g.run > 1 ? 2 : 1;
+  l.ws = (long long)g.k_h * g.k_w * l.cp * g.oc_b;
+  l.scratch = wp::scratch_floats(win_split(g));
+  return l;
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
+// Divisors of the window kernel's index arithmetic, built on the host.
+struct WinDivs {
+  wp::FastDiv pw_w, pw_h, ic_t, oc_b, ob4, cp, per_img, px, pad;
+};
 
-// Issue the asynchronous copy of window wi's patch into `slot`.
+// Issue the asynchronous copy of window wi's patch into `slot`: x is read
+// along rows (coalesced), the slot holds channels fastest.
 __device__ __forceinline__ void stage_patch(const SdkGeom& g,
+                                            const WinLayout& l,
+                                            const WinDivs& dv,
                                             const float* __restrict__ x,
                                             float* slot, int ci, int wi,
                                             int b0, int nb) {
@@ -156,70 +188,134 @@ __device__ __forceinline__ void stage_patch(const SdkGeom& g,
   const int img = g.ic_t * g.pw_h * g.pw_w;
   const size_t plane = (size_t)g.i_h * g.i_w;
   for (int e = threadIdx.x; e < nb * img; e += blockDim.x) {
-    const int xx = e % row;
-    const int yy = (e / row) % g.pw_h;
-    const int c = (e / (row * g.pw_h)) % g.ic_t;
-    const int bb = e / img;
+    const int r1 = dv.pw_w.div(e), xx = e - r1 * row;
+    const int r2 = dv.pw_h.div(r1), yy = r1 - r2 * g.pw_h;
+    const int bb = dv.ic_t.div(r2), c = r2 - bb * g.ic_t;
     const float* src = x + ((size_t)(b0 + bb) * g.ic_pad
                             + (size_t)ci * g.ic_t + c) * plane
                        + (size_t)(y0 + yy) * g.i_w + (x0 + xx);
-    cp_async4(slot + e, src);
+    wp::cp_async4(slot + bb * l.img + (yy * row + xx) * l.pix + c, src);
   }
-  cp_async_commit();
+  wp::cp_async_commit();
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(wp::kThreads)
 sdk_window_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                  float* __restrict__ out, SdkGeom g) {
-  extern __shared__ float smem[];
-  const int ci = blockIdx.x / g.ac_c;
-  const int oi = blockIdx.x % g.ac_c;
+                  float* __restrict__ out, SdkGeom g, WinDivs dv) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const wp::Split s = win_split(g);
+  const WinLayout l = win_layout(g);
+  float* ws = smem + l.slot * l.slots;
+  float* scratch = ws + l.ws;
+  const int parts = (g.oc_t + g.oc_b - 1) / g.oc_b;
+  const int pass = blockIdx.x / parts;
+  const int ci = pass / g.ac_c;
+  const int oi = pass % g.ac_c;
+  const int o_lo = (blockIdx.x % parts) * g.oc_b;
+  const int o_hi = min(g.oc_t, o_lo + g.oc_b);
   const int w_begin = blockIdx.y * g.run;
   const int w_end = min(w_begin + g.run, g.nw);
   const int b0 = blockIdx.z * g.b_chunk;
   const int nb = min(g.b_chunk, g.b - b0);
-  const int img = g.ic_t * g.pw_h * g.pw_w;
-  const int slot_elems = g.b_chunk * img;
-  const int per_img = g.oc_t * g.py * g.px;
-  const size_t w_tap = (size_t)g.ic_pad * g.oc_pad;
-  const int cstride = g.pw_h * g.pw_w;
+  const int per_img = g.py * g.px;
+  const int rows = nb * per_img;
+  const int kk_n = g.k_h * g.k_w;
+  const int tid = threadIdx.x;
+  const size_t plane_out = (size_t)g.o_h * g.o_w;   // one output channel
 
-  stage_patch(g, x, smem, ci, w_begin, b0, nb);            // prologue
+  // the kernel block (copied with the first patch), zero past ic_t and
+  // o_hi; 16-byte copies where the columns come in fours
+  const size_t w_col = (size_t)ci * g.ic_t * g.oc_pad + (size_t)oi * g.oc_t
+                       + o_lo;
+  if (g.oc_t % 4 == 0 && g.oc_pad % 4 == 0) {
+    const int ob4 = g.oc_b / 4;
+    for (int e = tid; e < kk_n * l.cp * ob4; e += wp::kThreads) {
+      const int rest = dv.ob4.div(e), o = 4 * (e - rest * ob4);
+      const int kk = dv.cp.div(rest), c = rest - kk * l.cp;
+      float* dst = ws + rest * g.oc_b + o;
+      if (c < g.ic_t && o_lo + o < o_hi)
+        wp::cp_async16(dst, w + w_col + ((size_t)kk * g.ic_pad + c)
+                                            * g.oc_pad + o);
+      else
+        *reinterpret_cast<float4*>(dst) = make_float4(0, 0, 0, 0);
+    }
+  } else {
+    for (int e = tid; e < kk_n * l.cp * g.oc_b; e += wp::kThreads) {
+      const int rest = dv.oc_b.div(e), o = e - rest * g.oc_b;
+      const int kk = dv.cp.div(rest), c = rest - kk * l.cp;
+      if (c < g.ic_t && o_lo + o < o_hi)
+        wp::cp_async4(ws + e, w + w_col + ((size_t)kk * g.ic_pad + c)
+                                              * g.oc_pad + o);
+      else
+        ws[e] = 0.f;
+    }
+  }
+  stage_patch(g, l, dv, x, smem, ci, w_begin, b0, nb);     // prologue
+  // the channels past ic_t of every staged pixel are zero
+  const int pad = l.cp - g.ic_t;
+  if (pad > 0) {
+    const int n_pix = (int)(l.slot * l.slots / l.pix);
+    for (int e = tid; e < n_pix * pad; e += wp::kThreads) {
+      const int pixel = dv.pad.div(e);
+      smem[pixel * l.pix + g.ic_t + e - pixel * pad] = 0.f;
+    }
+  }
+
   for (int wi = w_begin; wi < w_end; ++wi) {
-    const float* cur = smem + ((wi - w_begin) & 1) * slot_elems;
+    const float* cur = smem + ((wi - w_begin) & 1) * l.slot;
     if (wi + 1 < w_end) {
       // the other slot was last read in the previous iteration, which
       // ended in __syncthreads(): it is free to overwrite
-      stage_patch(g, x, smem + ((wi + 1 - w_begin) & 1) * slot_elems, ci,
+      stage_patch(g, l, dv, x, smem + ((wi + 1 - w_begin) & 1) * l.slot, ci,
                   wi + 1, b0, nb);
-      cp_async_wait<1>();          // this window's group has landed
+      wp::cp_async_wait<1>();      // this window's group has landed
     } else {
-      cp_async_wait<0>();
+      wp::cp_async_wait<0>();
     }
     __syncthreads();
 
     int y0, x0;
     window_origin(g, wi, &y0, &x0);
-    for (int e = threadIdx.x; e < nb * per_img; e += blockDim.x) {
-      const int qx = e % g.px;
-      const int qy = (e / g.px) % g.py;
-      const int o = (e / (g.px * g.py)) % g.oc_t;
-      const int bb = e / per_img;
-      const float* xb = cur + bb * img + (qy * g.s) * g.pw_w + qx * g.s;
-      const float* wb = w + (size_t)ci * g.ic_t * g.oc_pad
-                        + (size_t)oi * g.oc_t + o;
-      float acc = 0.f;
-      for (int dy = 0; dy < g.k_h; ++dy) {
-        for (int dx = 0; dx < g.k_w; ++dx) {
-          const float* xp = xb + dy * g.pw_w + dx;
-          const float* wp = wb + (size_t)(dy * g.k_w + dx) * w_tap;
-          for (int c = 0; c < g.ic_t; ++c) {
-            acc = fmaf(xp[c * cstride], wp[(size_t)c * g.oc_pad], acc);
+    const int oy0 = y0 / g.s, ox0 = x0 / g.s;
+    for (int p = 0; p < s.passes; ++p) {
+      const int t = s.ks > 1 ? tid % s.nt : tid + p * wp::kThreads;
+      const int kg = s.ks > 1 ? tid / s.nt : 0;
+      const bool active = s.ks > 1 ? tid < s.nt * s.ks : t < s.nt;
+      int tp, to;
+      wp::tile_of(t, s, &tp, &to);
+      int base[wp::RP];
+#pragma unroll
+      for (int r = 0; r < wp::RP; ++r) {
+        const int m = min(tp + s.ntp * r, rows - 1);        // clamp: load only
+        const int bb = dv.per_img.div(m), q = m - bb * per_img;
+        const int qy = dv.px.div(q), qx = q - qy * g.px;
+        base[r] = bb * l.img + (qy * g.s * g.pw_w + qx * g.s) * l.pix;
+      }
+      float acc[wp::RP][wp::RO] = {};
+      if (active) {
+        int j0, j1;
+        wp::k_range(kk_n * (l.cp / 4), kg, s.ks, &j0, &j1);
+        wp::product(cur, ws + wp::RO * to, base, l.cp / 4, l.cp, g.oc_b,
+                    g.k_w, g.pw_w * l.pix, l.pix, j0, j1, acc);
+      }
+      wp::reduce_groups(scratch, s, t, kg, active, acc);
+      if (active && kg == 0) {
+#pragma unroll
+        for (int r = 0; r < wp::RP; ++r) {
+          const int m = tp + s.ntp * r;
+          if (m >= rows) continue;
+          const int bb = dv.per_img.div(m), q = m - bb * per_img;
+          const int qy = dv.px.div(q), qx = q - qy * g.px;
+          const size_t o0 = out_offset(g, ci, b0 + bb, oi * g.oc_t + o_lo,
+                                       oy0 + qy, ox0 + qx);
+#pragma unroll
+          for (int u = 0; u < wp::RO; ++u) {
+            const int o = wp::RO * to + u;
+            if (o_lo + o < o_hi) out[o0 + (size_t)o * plane_out] = acc[r][u];
           }
         }
       }
-      out[out_offset(g, ci, b0 + bb, oi * g.oc_t + o, y0 / g.s + qy,
-                     x0 / g.s + qx)] = acc;
     }
     __syncthreads();               // every read of `cur` is done
   }
@@ -239,19 +335,34 @@ extern "C" int sdk_conv_whole(const float* x, const float* w, float* out,
   return (int)cudaGetLastError();
 }
 
+// The window kernel's launch: cudaErrorInvalidValue when (b_chunk, run,
+// oc_b, ks) do not make a block that fits 227 KB of shared memory.
 extern "C" int sdk_conv_window(const float* x, const float* w, float* out,
-                               const SdkGeom* geom, int smem_bytes,
-                               void* stream) {
+                               const SdkGeom* geom, void* stream) {
   const SdkGeom g = *geom;
+  if (g.b_chunk < 1 || g.run < 1 || g.oc_b < 4 || g.oc_b % 4 ||
+      !wp::split_ok(win_split(g)))
+    return (int)cudaErrorInvalidValue;
+  const long long smem = win_layout(g).total() * (long long)sizeof(float);
+  if (smem > wp::kSmemLimit) return (int)cudaErrorInvalidValue;
+  const int smem_bytes = (int)smem;
   if (smem_bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         sdk_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem_bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid(g.ar_c * g.ac_c, (g.nw + g.run - 1) / g.run,
+  const dim3 grid(g.ar_c * g.ac_c * ((g.oc_t + g.oc_b - 1) / g.oc_b),
+                  (g.nw + g.run - 1) / g.run,
                   (g.b + g.b_chunk - 1) / g.b_chunk);
+  const WinLayout l = win_layout(g);
+  const WinDivs dv{wp::FastDiv(g.pw_w), wp::FastDiv(g.pw_h),
+                   wp::FastDiv(g.ic_t), wp::FastDiv(g.oc_b),
+                   wp::FastDiv(g.oc_b / 4), wp::FastDiv(l.cp),
+                   wp::FastDiv(g.py * g.px),
+                   wp::FastDiv(g.px),
+                   wp::FastDiv(l.cp > g.ic_t ? l.cp - g.ic_t : 1)};
   sdk_window_kernel<<<grid, kThreads, smem_bytes, (cudaStream_t)stream>>>(
-      x, w, out, g);
+      x, w, out, g, dv);
   return (int)cudaGetLastError();
 }

@@ -2,13 +2,22 @@
 
 Each ``csrc/*.cu`` file has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the repository root,
-under a name keyed by a hash of its source and flags, then loaded with
+under a name keyed by a hash of its source, the headers beside it and
+the flags, then loaded with
 ``ctypes``.  A library is built at its first use in a process, never at
 import; an unchanged source found built is loaded as it is.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
 :func:`launch` calls an entry point and raises on the CUDA error it
 returns; :func:`cuda_operand` and :func:`ptr` prepare its tensor
 arguments.
+
+    PYTHONPATH=src python -m repro_torch.kernels._build --ptxas-report \
+        [source.cu ...]
+
+prints what ``ptxas`` reports for each source (registers, shared memory,
+stack and spills per kernel), built once with the same flags plus
+``-Xptxas -v`` into a temporary directory; ``build/kernels/`` is left as
+it is.  Needs ``nvcc``.
 """
 from __future__ import annotations
 
@@ -17,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 import threading
 from pathlib import Path
@@ -47,10 +57,20 @@ def nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where ``csrc/<source>`` builds to: keyed by source and flags."""
+    """Where ``csrc/<source>`` builds to: keyed by the source, every
+    header of ``csrc/`` (``*.cuh``, which a source may include) and the
+    flags, so a changed header rebuilds every library."""
     text = (CSRC / source).read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        text += header.name.encode() + header.read_bytes()
     digest = hashlib.sha256(text + repr(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{Path(source).stem}-{digest[:16]}.so"
+
+
+def command(source: str, out: str, extra: Sequence[str] = ()) -> list:
+    """The ``nvcc`` command line that builds ``csrc/<source>`` into
+    ``out``, with ``extra`` flags after the committed ones."""
+    return [nvcc(), *NVCC_FLAGS, *extra, "-o", out, str(CSRC / source)]
 
 
 def _start(source: str):
@@ -62,8 +82,7 @@ def _start(source: str):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
     os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / source)]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+    proc = subprocess.Popen(command(source, tmp), stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, target
 
@@ -131,3 +150,32 @@ def launch(fn, device: torch.device, *args) -> None:
         err = fn(*args, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{fn.__name__}: CUDA error {err} at launch")
+
+
+def ptxas_report(source: str, out_dir: Path) -> str:
+    """The ``ptxas info`` and spill lines of one build of ``csrc/<source>``
+    with ``-Xptxas -v``, into ``out_dir``."""
+    out = str(out_dir / (Path(source).stem + ".so"))
+    proc = subprocess.run(command(source, out, ("-Xptxas", "-v")),
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+    return "\n".join(line for line in proc.stderr.splitlines()
+                     if "ptxas info" in line or "spill" in line)
+
+
+def main(argv: Sequence[str]) -> int:
+    if not argv or argv[0] != "--ptxas-report":
+        print("usage: python -m repro_torch.kernels._build --ptxas-report "
+              "[source.cu ...]", file=sys.stderr)
+        return 2
+    sources = list(argv[1:]) or sorted(p.name for p in CSRC.glob("*.cu"))
+    with tempfile.TemporaryDirectory() as tmp:
+        for source in sources:
+            print(f"== {source}")
+            print(ptxas_report(source, Path(tmp)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

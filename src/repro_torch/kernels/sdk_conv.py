@@ -12,10 +12,15 @@ leading ``ar_c`` axis that is summed afterwards (Fig 3's shift-and-add).
 
 Two hand-written CUDA kernels (``csrc/sdk_conv.cu``) carry it on the
 card: :func:`sdk_whole` reads the whole feature map from device memory,
-:func:`sdk_window` stages one window patch at a time in shared memory,
-double-buffered.  ``block="auto"`` picks the window kernel when the
-whole-array working set exceeds the budget — the JAX package's rule,
-kept so both packages resolve the same ``block`` per layer.
+:func:`sdk_window` stages the tile's kernel block and one window patch
+at a time in shared memory and runs the register-tiled product of
+``csrc/window_product.cuh``; :func:`window_launch_dims` lays it out to
+fill the card, double-buffering a run of windows only past two waves of
+blocks.  ``block="auto"`` picks the window kernel when the whole-array
+working set exceeds the budget — the JAX package's rule, kept so both
+packages resolve the same ``block`` per layer.  Under the 8 MiB default
+no served mapping of cnn8, densenet40 or inception reaches the window
+kernel below batch 128; from 128, Incep-3b does.
 
 :func:`sdk_conv_plain` repeats the same per-(group, tile, window)
 arithmetic in PyTorch.  :func:`sdk_conv` takes it only for tensors on
@@ -28,13 +33,14 @@ import functools
 import math
 import os
 from dataclasses import dataclass
-from typing import Callable, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..core.types import LayerMapping
 from ._build import launch, ptr
+from .window_product import SMEM_LIMIT, k_groups, round4, smem_bytes
 
 #: Fallback ``block="auto"`` budget (bytes) when the environment does
 #: not override it — the JAX package's VMEM budget, kept as the same
@@ -42,12 +48,13 @@ from ._build import launch, ptr
 DEFAULT_VMEM_BUDGET = 8 * 1024 * 1024
 _VMEM_ENV_VAR = "REPRO_SDK_VMEM_BUDGET"
 
-#: Shared memory one block may use on an H100 (232,448 bytes).
-SMEM_LIMIT = 227 * 1024
-#: Output elements a block should cover at least (its thread count).
+#: Output elements the whole kernel's block should cover at least (its
+#: thread count).
 _THREADS = 256
-#: Blocks that fill the card about twice (132 SMs).
-_TARGET_BLOCKS = 264
+#: Streaming multiprocessors of an H100: the window kernel's launch aims
+#: at this many blocks, and takes runs of windows only past two waves.
+_SMS = 132
+_TWO_WAVES = 2 * _SMS
 SOURCE = "sdk_conv.cu"
 
 
@@ -108,7 +115,7 @@ class SdkGeom(ctypes.Structure):
         "b", "ic_pad", "i_h", "i_w", "oc_pad", "o_h", "o_w",
         "ar_c", "ac_c", "ic_t", "oc_t", "k_h", "k_w", "s",
         "pw_h", "pw_w", "py", "px", "step_y", "step_x", "nx", "nw",
-        "lim_y", "lim_x", "b_chunk", "run")]
+        "lim_y", "lim_x", "b_chunk", "run", "oc_b", "ks")]
 
 
 @dataclass(frozen=True)
@@ -153,6 +160,21 @@ class TileGeom:
         return _window_origin(wi, step_y=self.step_y, step_x=self.step_x,
                               nx=self.nx, lim_y=self.lim_y,
                               lim_x=self.lim_x)
+
+    @functools.cached_property
+    def covers_output(self) -> bool:
+        """True when the window raster writes every output position and
+        none outside ``(o_h, o_w)``: the kernels then need no zero-filled
+        output.  Rows and columns of the raster are independent."""
+        def covered(n_win, step, lim, tile, size):
+            seen = set()
+            for i in range(n_win):
+                o0 = min(i * step, lim) // self.s
+                seen.update(range(o0, o0 + tile))
+            return seen == set(range(size))
+        return (covered(self.ny, self.step_y, self.lim_y, self.py, self.o_h)
+                and covered(self.nx, self.step_x, self.lim_x, self.px,
+                            self.o_w))
 
 
 def tile_geom(mapping: LayerMapping, tile) -> TileGeom:
@@ -224,7 +246,7 @@ def _library() -> ctypes.CDLL:
     ptrs = [ctypes.c_void_p] * 3 + [ctypes.POINTER(SdkGeom)]
     lib.sdk_conv_whole.argtypes = ptrs + [ctypes.c_void_p]
     lib.sdk_conv_whole.restype = ctypes.c_int
-    lib.sdk_conv_window.argtypes = ptrs + [ctypes.c_int, ctypes.c_void_p]
+    lib.sdk_conv_window.argtypes = ptrs + [ctypes.c_void_p]
     lib.sdk_conv_window.restype = ctypes.c_int
     return lib
 
@@ -248,7 +270,7 @@ def _check_operands(xt: torch.Tensor, kt: torch.Tensor, g: TileGeom
 
 
 def _c_geom(xt: torch.Tensor, kt: torch.Tensor, g: TileGeom, b_chunk: int,
-            run: int) -> SdkGeom:
+            run: int, oc_b: int = 4, ks: int = 1) -> SdkGeom:
     b, ic_pad, i_h, i_w = xt.shape
     return SdkGeom(b=b, ic_pad=ic_pad, i_h=i_h, i_w=i_w,
                    oc_pad=kt.shape[3], o_h=g.o_h, o_w=g.o_w, ar_c=g.ar_c,
@@ -256,7 +278,7 @@ def _c_geom(xt: torch.Tensor, kt: torch.Tensor, g: TileGeom, b_chunk: int,
                    k_w=g.k_w, s=g.s, pw_h=g.pw_h, pw_w=g.pw_w, py=g.py,
                    px=g.px, step_y=g.step_y, step_x=g.step_x, nx=g.nx,
                    nw=g.nw, lim_y=g.lim_y, lim_x=g.lim_x, b_chunk=b_chunk,
-                   run=run)
+                   run=run, oc_b=oc_b, ks=ks)
 
 
 def whole_launch_dims(b: int, g: TileGeom) -> Tuple[int, int]:
@@ -267,22 +289,67 @@ def whole_launch_dims(b: int, g: TileGeom) -> Tuple[int, int]:
     return b_chunk, g.steps * math.ceil(b / b_chunk)
 
 
-def window_launch_dims(b: int, g: TileGeom) -> Tuple[int, int, int, int]:
-    """(b_chunk, run, smem_bytes, blocks) of the window kernel.  Two patch
-    slots of ``b_chunk`` images must fit the block's shared memory; a
-    block walks ``run >= 2`` windows (when the raster has two) so the
-    prefetch overlaps compute, longer runs only when there are more
-    blocks than the card holds at once."""
-    b_chunk = min(b, SMEM_LIMIT // (2 * 4 * g.patch_floats))
-    if b_chunk < 1:
-        raise ValueError(f"one window patch of {g.patch_floats} floats "
-                         f"does not fit two shared-memory slots")
-    chunks = math.ceil(b / b_chunk)
+class WindowLaunch(NamedTuple):
+    """How :func:`sdk_window` lays out one (group, tile) launch."""
+
+    b_chunk: int   # images per block
+    run: int       # consecutive windows per block (> 1: double buffer)
+    oc_b: int      # of the oc_t columns per block, a multiple of 4
+    ks: int        # thread groups splitting the K sum
+    smem: int      # bytes of shared memory per block
+    blocks: int    # blocks of the launch
+
+
+def window_launch_dims(b: int, g: TileGeom) -> WindowLaunch:
+    """The window kernel's layout.  A block starts at one window, one
+    image and all ``oc_t`` columns; the columns are halved (down to 4)
+    while the launch has at most half as many blocks as the card's 132
+    SMs.  Past two waves a block walks a run of windows (its patch
+    double-buffered), then takes several images.  Its kernel block and
+    patch slots must fit 227 KB: the columns are halved further until
+    they do."""
     passes = g.ar_c * g.ac_c
-    run = min(g.nw, max(2, math.ceil(g.nw * passes * chunks
-                                     / _TARGET_BLOCKS)))
-    blocks = passes * math.ceil(g.nw / run) * chunks
-    return b_chunk, run, 2 * 4 * b_chunk * g.patch_floats, blocks
+    k_taps = g.k_h * g.k_w
+    k_steps = k_taps * round4(g.ic_t) // 4
+
+    def parts_of(oc_b):
+        return math.ceil(g.oc_t / oc_b)
+
+    oc_b = round4(g.oc_t)
+    while oc_b > 4 and 2 * passes * g.nw * b * parts_of(oc_b) <= _SMS:
+        oc_b = round4(math.ceil(oc_b / 2))
+    while True:
+        blocks_per_image = passes * parts_of(oc_b)
+        run = 1
+        if blocks_per_image * g.nw * b > _TWO_WAVES:
+            run = min(g.nw, math.ceil(blocks_per_image * g.nw * b
+                                      / _TWO_WAVES))
+        per_chunk = blocks_per_image * math.ceil(g.nw / run)
+        b_chunk = min(b, math.ceil(b / max(1, _TWO_WAVES // per_chunk)))
+        while True:
+            rows = b_chunk * g.py * g.px
+            ks = k_groups(rows, oc_b, k_steps)
+            smem = smem_bytes(b_chunk * g.pw_h * g.pw_w, k_taps, g.ic_t,
+                              rows, oc_b, ks, 2 if run > 1 else 1)
+            if smem <= SMEM_LIMIT or b_chunk == 1:
+                break
+            b_chunk -= 1
+        if smem <= SMEM_LIMIT:
+            return WindowLaunch(b_chunk, run, oc_b, ks, smem,
+                                per_chunk * math.ceil(b / b_chunk))
+        if oc_b == 4:
+            raise ValueError(f"one window patch of {g.patch_floats} floats "
+                             f"and 4 kernel columns exceed {SMEM_LIMIT} "
+                             f"bytes of shared memory")
+        oc_b = round4(math.ceil(oc_b / 2))
+
+
+def _output(g: TileGeom, b: int, oc_pad: int, device) -> torch.Tensor:
+    """The launch's (ar_c, b, oc_pad, o_h, o_w) output: uninitialised when
+    the raster writes all of it, else zero-filled."""
+    alloc = torch.empty if g.covers_output else torch.zeros
+    return alloc((g.ar_c, b, oc_pad, g.o_h, g.o_w), dtype=torch.float32,
+                 device=device)
 
 
 def sdk_whole(xt: torch.Tensor, kt: torch.Tensor, g: TileGeom
@@ -293,8 +360,7 @@ def sdk_whole(xt: torch.Tensor, kt: torch.Tensor, g: TileGeom
     they ran in ``sdk_whole.steps``."""
     _check_operands(xt, kt, g)
     b = xt.shape[0]
-    out = torch.zeros((g.ar_c, b, kt.shape[3], g.o_h, g.o_w),
-                      dtype=torch.float32, device=xt.device)
+    out = _output(g, b, kt.shape[3], xt.device)
     b_chunk, _ = whole_launch_dims(b, g)
     launch(_library().sdk_conv_whole, xt.device, ptr(xt), ptr(kt), ptr(out),
            ctypes.byref(_c_geom(xt, kt, g, b_chunk, 1)))
@@ -311,11 +377,10 @@ def sdk_window(xt: torch.Tensor, kt: torch.Tensor, g: TileGeom
     they ran in ``sdk_window.steps``."""
     _check_operands(xt, kt, g)
     b = xt.shape[0]
-    out = torch.zeros((g.ar_c, b, kt.shape[3], g.o_h, g.o_w),
-                      dtype=torch.float32, device=xt.device)
-    b_chunk, run, smem, _ = window_launch_dims(b, g)
+    out = _output(g, b, kt.shape[3], xt.device)
+    d = window_launch_dims(b, g)
     launch(_library().sdk_conv_window, xt.device, ptr(xt), ptr(kt), ptr(out),
-           ctypes.byref(_c_geom(xt, kt, g, b_chunk, run)), ctypes.c_int(smem))
+           ctypes.byref(_c_geom(xt, kt, g, d.b_chunk, d.run, d.oc_b, d.ks)))
     sdk_window.launches += 1
     sdk_window.steps += g.steps
     return out

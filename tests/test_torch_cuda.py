@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
-the sdk kernels, tetris_matmul, grouped_matmul and flash_attention, the
+the sdk kernels (the window kernel also with runs of windows and at
+stride 2), tetris_matmul, grouped_matmul and flash_attention, the
 last also through the attention stage at a ragged length, ssd_chunk
 (also through the SSD mixer) and im2win_conv (also through the ops
 surface, with each of its kernels).  Marked
@@ -66,6 +67,34 @@ def test_kernel_matches_plain(cuda, name, batch, block):
     assert fn.steps == sk.sdk_conv_cycles(m)
     scale = float(want.abs().max())
     assert float((y - want).abs().max()) <= RTOL * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,batch,run,stride", [
+    ("marginal", 32, 3, 1), ("double_buffer", 32, 3, 2),
+    ("double_buffer", 3, 1, 2), ("5x5", 100, 10, 1)])
+def test_sdk_window_runs_and_stride(cuda, name, batch, run, stride):
+    """The window kernel with a run of windows per block (its cp.async
+    double buffer in use) and at stride 2, against the plain version;
+    the output is allocated without a zero fill (covers_output)."""
+    from repro_torch.kernels import sdk_conv as sk
+    m = _layer(name)
+    g0 = sk.tile_geom(m, m.tiles[0])
+    assert (sk.window_launch_dims(batch, g0).run, g0.s) == (run, stride)
+    assert all(sk.tile_geom(m, t).covers_output for t in m.tiles)
+    rng = np.random.RandomState(1)
+    lay = m.layer
+    x = torch.as_tensor(rng.randn(batch, lay.ic, lay.i_h, lay.i_w)
+                        .astype(np.float32), device=cuda)
+    k = torch.as_tensor(rng.randn(lay.k_h, lay.k_w, lay.ic // m.group,
+                                  lay.oc).astype(np.float32), device=cuda)
+    sk.reset_counts()
+    y = sk.sdk_conv(m, x, k, block="window")
+    torch.cuda.synchronize()
+    assert sk.sdk_window.launches == len(m.tiles) * m.group
+    assert sk.sdk_window.steps == sk.sdk_conv_cycles(m)
+    want = sk.sdk_conv_plain(m, x, k)
+    assert float((y - want).abs().max()) <= RTOL * float(want.abs().max())
 
 
 def _rand(cuda, *shape, seed=0):
@@ -246,23 +275,28 @@ def test_ssd_chunked_kernel_matches_plain(cuda, s):
     (1, 7, 7, 3, 3, 5), (2, 28, 28, 32, 5, 96), (2, 5, 5, 64, 5, 256),
     (2, 14, 14, 32, 5, 128), (1, 40, 40, 8, 3, 70)])
 def test_im2win_conv_matches_plain(cuda, cfg):
-    """The JAX kernel test's shapes and layers that need channel slices
-    (Incep-3b, CNN8-7, Incep-4e) or an oc that 64 does not divide; the
-    blocks launched are the grid's n_cycles."""
+    """The JAX kernel test's shapes and the paper's heaviest and
+    smallest windows (Incep-3b, CNN8-7 with one position, Incep-4e) and
+    an oc that 4 x 16 does not divide; one launch runs n_cycles grid
+    steps, each a cluster of cluster_split's size, so the blocks are
+    steps x cluster, as the C entry reports them launched.  A (3, 5)
+    window clamps its borders."""
     from repro_torch.kernels import im2win_conv as iw
     b, h, w, c, k, o = cfg
     x = _rand(cuda, b, h, w, c, seed=13)
     kk = _rand(cuda, k, k, c, o, seed=14) * 0.1
-    iw.reset_counts()
-    y = iw.im2win_conv(x, kk)
-    torch.cuda.synchronize()
-    o_h, o_w, th, tw = iw.conv_window(x.shape, kk.shape)
-    assert iw.im2win_conv_cuda.launches == 1
-    assert iw.im2win_conv_cuda.blocks == iw.n_cycles(o_h, o_w, th, tw, b)
-    _close(y, iw.im2win_conv_plain(x, kk))
-    yw = iw.im2win_conv(x, kk, window=(3, 5))          # clamped borders
-    torch.cuda.synchronize()
-    _close(yw, iw.im2win_conv_plain(x, kk))
+    want = iw.im2win_conv_plain(x, kk)
+    for window in (None, (3, 5)):
+        iw.reset_counts()
+        y = iw.im2win_conv(x, kk, window=window)
+        torch.cuda.synchronize()
+        o_h, o_w, th, tw = iw.conv_window(x.shape, kk.shape, window)
+        cluster, _ = iw.cluster_split(th, tw, o, c, k, k)
+        assert iw.im2win_conv_cuda.launches == 1
+        assert iw.im2win_conv_cuda.steps == iw.n_cycles(o_h, o_w, th, tw, b)
+        assert iw.im2win_conv_cuda.blocks == \
+            iw.im2win_conv_cuda.steps * cluster
+        _close(y, want)
 
 
 @pytest.mark.cuda

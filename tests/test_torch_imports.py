@@ -105,3 +105,51 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                  torch.zeros(1, 8, 1, 4), chunk=8)
     assert im2win_conv.im2win_conv_cuda.launches == 0
     assert ssd_chunk.ssd_chunk_cuda.launches == 0
+
+
+def test_library_path_follows_the_headers(tmp_path, monkeypatch):
+    """A kernel library is keyed by its source and by every header of
+    csrc/: changing a header (window_product.cuh, which two sources
+    include) rebuilds every library, and changing one source only its
+    own."""
+    from repro_torch.kernels import _build
+    (tmp_path / "a.cu").write_text('#include "shared.cuh"\n')
+    (tmp_path / "b.cu").write_text('#include "shared.cuh"\n')
+    (tmp_path / "shared.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {s: _build.library_path(s) for s in ("a.cu", "b.cu")}
+    assert before["a.cu"].parent == _build.BUILD_DIR
+    (tmp_path / "shared.cuh").write_text("// v2\n")
+    after = {s: _build.library_path(s) for s in ("a.cu", "b.cu")}
+    assert all(after[s] != before[s] for s in after)
+    (tmp_path / "a.cu").write_text('#include "shared.cuh"\n// a2\n')
+    assert _build.library_path("a.cu") != after["a.cu"]
+    assert _build.library_path("b.cu") == after["b.cu"]
+
+
+def test_ptxas_report_uses_the_build_command(tmp_path, monkeypatch):
+    """The ptxas report builds with the committed flags plus -Xptxas -v
+    (the same command line as a library build, flags unchanged) and keeps
+    only ptxas's info and spill lines."""
+    import subprocess
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "nvcc", lambda: "nvcc")
+    assert _build.command("a.cu", "a.so") == \
+        ["nvcc", *_build.NVCC_FLAGS, "-o", "a.so", str(_build.CSRC / "a.cu")]
+    seen = []
+
+    def run(cmd, **kw):
+        seen.append(cmd)
+        return subprocess.CompletedProcess(cmd, 0, "", (
+            "ptxas info    : Used 167 registers\n"
+            "noise\n"
+            "    0 bytes stack frame, 0 bytes spill stores\n"))
+    monkeypatch.setattr(_build.subprocess, "run", run)
+    text = _build.ptxas_report("im2win_conv.cu", tmp_path)
+    assert seen == [_build.command("im2win_conv.cu",
+                                   str(tmp_path / "im2win_conv.so"),
+                                   ("-Xptxas", "-v"))]
+    assert text.splitlines() == ["ptxas info    : Used 167 registers",
+                                 "    0 bytes stack frame, 0 bytes spill "
+                                 "stores"]
+    assert _build.main([]) == 2

@@ -113,3 +113,67 @@ def test_tile_arguments_are_refused():
     g = torch.zeros(2, 8, 8)
     with pytest.raises(ValueError, match="bf"):
         ops.gmm(g, g, bf=8)
+
+
+def _split_cases():
+    """(b, h, w, c, k, o, window) of the 14 layers at batch 8 and the
+    JAX kernel test's shapes, each also at a clamped (3, 5) window."""
+    cases = [(8, lay.i_h, lay.i_w, lay.ic, lay.k_h, lay.oc, None)
+             for lay in LAYERS]
+    cases += [cfg + (None,) for cfg in KERNEL_CFGS]
+    cases += [cfg + ((3, 5),) for cfg in KERNEL_CFGS]
+    return cases
+
+
+@pytest.mark.parametrize("case", _split_cases())
+def test_cluster_split_covers_each_window_once(case):
+    """cluster_split gives one grid step at most MAX_CLUSTER (8, the
+    largest portable cluster) blocks, whose parts
+    (rank -> (pi, oi) = divmod(rank, co)) cover every (position, channel)
+    of the window exactly once, none of them empty, within a block's
+    shared memory; the launch has n_cycles steps and n_cycles x cluster
+    blocks."""
+    b, h, w, c, k, o, window = case
+    o_h, o_w, th, tw = im2win_conv.conv_window((b, h, w, c), (k, k, c, o),
+                                               window)
+    cluster, tile = im2win_conv.cluster_split(th, tw, o, c, k, k)
+    assert 1 <= cluster <= im2win_conv.MAX_CLUSTER == 8
+    assert cluster % tile.co == 0 and tile.oc % 4 == 0
+    assert 1 <= tile.cs <= c and tile.smem <= im2win_conv.SMEM_LIMIT
+    seen = np.zeros((th * tw, o), dtype=int)
+    for rank in range(cluster):
+        pi, oi = divmod(rank, tile.co)
+        part = seen[pi * tile.pos:(pi + 1) * tile.pos,
+                    oi * tile.oc:(oi + 1) * tile.oc]
+        assert part.size > 0
+        part += 1
+    assert (seen == 1).all()
+    args, steps, n = im2win_conv._plan((b, h, w, c), (k, k, c, o), window)
+    assert steps == im2win_conv.n_cycles(o_h, o_w, th, tw, b)
+    assert n == cluster and args[9:] == (cluster, tile.co, tile.pos,
+                                         tile.oc, tile.cs, tile.ks)
+
+
+@pytest.mark.parametrize("batch", [8, 16])
+def test_cluster_split_fills_the_card_on_the_paper_layers(batch):
+    """Each of the 14 layers has one grid step per image (the window
+    covers the whole output); the split gives the layers with enough work
+    MAX_CLUSTER blocks a step (at batch 8, 8 x 8 = 64 SMs in one wave),
+    the same at every batch, and keeps every part at least 16 channels
+    or positions wide."""
+    clusters = {}
+    for lay in LAYERS:
+        x_shape = (batch, lay.i_h, lay.i_w, lay.ic)
+        w_shape = (lay.k_h, lay.k_w, lay.ic, lay.oc)
+        o_h, o_w, th, tw = im2win_conv.conv_window(x_shape, w_shape)
+        assert im2win_conv.n_cycles(o_h, o_w, th, tw, batch) == batch
+        cluster, tile = im2win_conv.cluster_split(th, tw, lay.oc, lay.ic,
+                                                  lay.k_h, lay.k_w)
+        clusters[lay.name] = cluster
+        assert im2win_conv._plan(x_shape, w_shape, None)[1:] == \
+            (batch, cluster)
+        assert tile.oc >= min(16, lay.oc) and tile.pos >= min(16, th * tw)
+        assert tile.smem <= im2win_conv.SMEM_LIMIT
+    assert clusters["Incep-3b"] == clusters["CNN8-7"] == \
+        im2win_conv.MAX_CLUSTER
+    assert sum(v == im2win_conv.MAX_CLUSTER for v in clusters.values()) >= 9

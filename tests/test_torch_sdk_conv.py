@@ -5,6 +5,8 @@ windows, strided, grouped, multi-tile, pruned, conv1d, the
 double-buffer hazard case and the auto block rule.  On the CPU the port
 runs the kernels' plain version; the kernels themselves are held to it
 on the card by chip_smoke.py and tests/test_torch_cuda.py."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -89,10 +91,43 @@ def test_auto_block_rule_matches_jax(budget, monkeypatch):
     assert {c.mode for c in tk.tile_calls(tm, t(x), t(k))} == {"window"}
 
 
+def _window_cover(b, g, d):
+    """How often each (ci, oi, wi, image, channel) of a tile is computed
+    by the window kernel's grid under launch dims ``d``."""
+    parts = -(-g.oc_t // d.oc_b)
+    seen = {}
+    for bx in range(g.ar_c * g.ac_c * parts):
+        ci, oi = divmod(bx // parts, g.ac_c)
+        o_lo = (bx % parts) * d.oc_b
+        for by in range(-(-g.nw // d.run)):
+            for bz in range(-(-b // d.b_chunk)):
+                for wi in range(by * d.run, min(g.nw, (by + 1) * d.run)):
+                    for img in range(bz * d.b_chunk,
+                                     min(b, (bz + 1) * d.b_chunk)):
+                        for o in range(o_lo, min(g.oc_t, o_lo + d.oc_b)):
+                            key = (ci, oi, wi, img, o)
+                            seen[key] = seen.get(key, 0) + 1
+    return seen
+
+
+def _assert_window_launch(b, g):
+    d = tk.window_launch_dims(b, g)
+    assert d.smem <= tk.SMEM_LIMIT
+    assert 1 <= d.b_chunk <= b and 1 <= d.run <= g.nw
+    assert d.oc_b % 4 == 0 and 4 <= d.oc_b <= -(-g.oc_t // 4) * 4
+    seen = _window_cover(b, g, d)
+    assert len(seen) == g.steps * b * g.oc_t
+    assert set(seen.values()) == {1}
+    assert d.blocks == (g.ar_c * g.ac_c * -(-g.oc_t // d.oc_b)
+                        * -(-g.nw // d.run) * -(-b // d.b_chunk))
+    return d
+
+
 def test_launch_dims_fit_shared_memory():
-    """The window kernel's two patch slots fit a block's shared memory
-    even where the whole batch does not (a DenseNet40 block-3 layer at
-    batch 256), and every launch covers every window and image."""
+    """The window kernel's kernel block and patch slots fit a block's
+    shared memory even where the whole batch does not (a DenseNet40
+    block-3 layer at batch 256), and every launch computes every
+    (ci, oi, wi, image, channel) of the tile exactly once."""
     from repro_torch.core import ArrayConfig, networks
     from repro_torch.core import map_net
     net = map_net("densenet40", networks.densenet40(), ArrayConfig(512, 512),
@@ -101,13 +136,83 @@ def test_launch_dims_fit_shared_memory():
     for b in (1, 8, 256):
         for tile in m.tiles:
             g = tk.tile_geom(m, tile)
-            b_chunk, run, smem, blocks = tk.window_launch_dims(b, g)
-            assert smem == 2 * 4 * b_chunk * g.patch_floats <= tk.SMEM_LIMIT
-            assert 1 <= b_chunk <= b and 1 <= run <= g.nw
-            assert blocks == (g.ar_c * g.ac_c * -(-g.nw // run)
-                              * -(-b // b_chunk))
+            d = _assert_window_launch(b, g)
             if b == 256:
-                assert b_chunk < b      # the whole batch does not fit
+                assert d.b_chunk < b      # the whole batch does not fit
             wb, wblocks = tk.whole_launch_dims(b, g)
             assert wblocks == g.steps * -(-b // wb)
 
+
+def _served(net_name):
+    from repro_torch.core import ArrayConfig
+    from repro_torch.launch import serve_cnn
+    net, _ = serve_cnn.map_for_serving(net_name, ArrayConfig(512, 512),
+                                       "TetrisG-SDK")
+    return net
+
+
+@pytest.mark.parametrize("net_name", ["cnn8", "densenet40", "inception"])
+def test_window_launch_fills_the_card_on_served_tiles(net_name):
+    """On every tile of the served mappings at batch 8 the window kernel's
+    launch covers the tile once and fits; where the tile has at least 66
+    (window, image) pairs the launch has at least 66 blocks (half the
+    card), and a block walks a run of windows only past two waves."""
+    for m in _served(net_name).layers:
+        for tile in m.tiles:
+            g = tk.tile_geom(m, tile)
+            d = _assert_window_launch(8, g)
+            pairs = g.steps * 8
+            assert d.blocks >= min(pairs, 66)
+            if d.run > 1:
+                assert pairs * -(-g.oc_t // d.oc_b) > 264
+
+
+@pytest.mark.parametrize("net_name", ["cnn8", "densenet40", "inception"])
+def test_covers_output_on_served_mappings(net_name):
+    """Every tile of the served TetrisG-SDK mappings (and the strided
+    VW-SDK case of the chip smoke) writes every output position, so the
+    kernels allocate their output without a zero fill."""
+    from repro_torch.core import ArrayConfig, ConvLayerSpec, map_layer
+    maps = list(_served(net_name).layers)
+    if net_name == "cnn8":
+        maps.append(map_layer(ConvLayerSpec("s2", 11, 11, 3, 3, 16, 16,
+                                            stride=2),
+                              ArrayConfig(512, 512), "VW-SDK"))
+    for m in maps:
+        for tile in m.tiles:
+            assert tk.tile_geom(m, tile).covers_output, m.layer.name
+
+
+def test_covers_output_detects_a_gap():
+    """A raster whose step exceeds its output tile leaves a row of
+    outputs unwritten: covers_output is false there (and the kernels
+    zero-fill), true for the same raster stepped by its tile."""
+    gap = tk.TileGeom(s=1, k_h=3, k_w=3, pw_h=5, pw_w=9, py=3, px=7,
+                      step_y=4, step_x=7, ny=2, nx=1, lim_y=2, lim_x=0,
+                      ic_t=4, ar_c=1, oc_t=4, ac_c=1, o_h=7, o_w=7)
+    assert not gap.covers_output            # output row 3 is never written
+    tight = dataclasses.replace(gap, step_y=3, ny=3, lim_y=4)
+    assert tight.covers_output
+    outside = dataclasses.replace(gap, step_y=3, ny=3, lim_y=6)
+    assert not outside.covers_output         # writes rows 6..8 of 7
+
+
+@pytest.mark.parametrize("batch", [8, 16, 32, 64, 128, 256])
+def test_auto_block_reaches_window_only_at_large_batch(batch):
+    """Under the 8 MiB default budget, of the layers the auto policy gives
+    to ``sdk`` in the served cnn8, densenet40 and inception mappings, only
+    Incep-3b resolves to the window kernel, and only from batch 128 (its
+    whole-array working set is 10.3 MB there); up to batch 64 only a
+    forced ``block="window"`` reaches that kernel."""
+    from repro_torch.exec.plan import _auto_executor
+    window = set()
+    for net_name in ("cnn8", "densenet40", "inception"):
+        for m in _served(net_name).layers:
+            if _auto_executor(m, backend="cuda") != "sdk":
+                continue
+            for tile in m.tiles:
+                g = tk.tile_geom(m, tile)
+                if tk.resolve_block("auto", batch, g, m.layer,
+                                    tk.DEFAULT_VMEM_BUDGET) == "window":
+                    window.add(m.layer.name)
+    assert window == (set() if batch <= 64 else {"Incep-3b"})
