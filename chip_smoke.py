@@ -27,21 +27,28 @@ Phases, each of which raises on failure (exit code != 0):
 7. transformer kernels vs plain — tetris_matmul, grouped_matmul and
    flash_attention against their plain versions at the shapes of the
    transformer path and at ragged tails, causal or not, with a
-   ``q_offset`` and a GQA case; the attention stage at lengths that do
-   not tile by 128 (whisper's 1500-frame window, 136) must launch the
+   ``q_offset`` and a GQA case; each matmul launch prints its block tile,
+   its staging instance (16-byte, or 4-byte where K or N % 4 != 0 or x
+   is offset by one float) and the blocks the C entry launched, which
+   must equal ``gemm_launch_dims``'s; the attention stage at lengths that
+   do not tile by 128 (whisper's 1500-frame window, 136) must launch the
    kernel once and match its plain form;
 8. transformer path — ``serve`` (policy auto) of stablelm-1.6b (24
    blocks, seq 512, batch 4) and of the whisper-base encoder (6 blocks,
    seq 1024, batch 4) at full width, each with every launch count set to
    0 just before and read just after: every layer must run on
    ``matmul``, the kernels' launches must equal the forwards times their
-   launches per forward, and a forward must match ``execute_oracle``
+   launches per forward, the matmul blocks the forwards times
+   ``gemm_launch_dims``'s, and a forward must match ``execute_oracle``
    (plain functions only); one forward under ``torch.profiler`` gives
-   its device time beside the serving loop's wall time;
+   its device time beside the serving loop's wall time, and one more
+   (with Python frames) the device time of the matmul executor's layout
+   copies;
 9. transformer kernel times: device time with the stream held, per-call
    time, the plain version's, the bound and the library call's
    (``torch.matmul``, ``torch.bmm``, ``F.scaled_dot_product_attention``,
-   timed as yardsticks only);
+   timed as yardsticks only), and per kernel its share of the bound and
+   its ratio to the library call;
 10. ssd_chunk and im2win_conv vs plain — ``ssd_chunk`` against
     ``ssd_chunk_plain`` at mamba2-130m's prefill shape (B 4, S 2048, H 24,
     P 64, N 128, L 256), at a ragged prompt (S 2000, padded to 2048), at
@@ -61,7 +68,8 @@ Phases, each of which raises on failure (exit code != 0):
     prefill through the plain versions; one prefill under
     ``torch.profiler``;
 12. the ops surface — ``ops.matmul``, ``ops.gmm``, ``ops.attention`` and
-    ``ops.conv2d`` once each at a path shape, each launching its kernel;
+    ``ops.conv2d`` once each at a path shape, each launching its kernel
+    (the matmuls the blocks of ``gemm_launch_dims``);
 13. ssd_chunk and im2win_conv times, as in 9;
 14. a ``{"kernels": [...]}`` line: per kernel its launches, error, time
     at its path's shapes, the plain version's time, the least time the
@@ -278,6 +286,27 @@ def check(label: str, y, ref, tol: float = KERNEL_RTOL) -> float:
     return err
 
 
+def gemm_check(label: str, fn, plain, x, w, groups: int, m: int,
+               n: int) -> float:
+    """One launch of a matmul wrapper ``fn`` against its plain version,
+    with its block tile, staging instance and the blocks the C entry
+    reports launched printed; the blocks must equal the launch rule's.
+    Returns the max abs error."""
+    import torch
+    from repro_torch.kernels import tetris_matmul as tm
+    before = fn.blocks
+    y = fn(x, w)
+    torch.cuda.synchronize()
+    blocks = fn.blocks - before
+    d = tm.gemm_launch_dims(groups, m, n, tm.sm_count(y.device))
+    inst = "16-byte" if tm.vector_staging(x, w, y) else "4-byte"
+    if blocks != d.blocks:
+        raise AssertionError(f"{label}: {blocks} blocks launched != "
+                             f"gemm_launch_dims's {d.blocks}")
+    return check(f"{label} tile {d.bm}x{d.bn} {inst} staging, blocks "
+                 f"{blocks} (rule {d.blocks})", y, plain(x, w))
+
+
 def transformer_kernel_checks(shapes, dev) -> dict:
     """Phase 7: each transformer kernel against its plain version at the
     path's shapes and at ragged tails; returns each kernel's max error."""
@@ -289,18 +318,27 @@ def transformer_kernel_checks(shapes, dev) -> dict:
     rng = np.random.RandomState(SEED)
     errs = {"tetris_matmul": 0.0, "grouped_matmul": 0.0,
             "flash_attention": 0.0}
-    mnk = [(m, f, d) for g, m, d, f in shapes["whisper_base"]]
-    for m, n, k in mnk + [(1000, 1000, 96), (130, 520, 72)]:
-        x, w = randn(rng, (m, k), dev), randn(rng, (k, n), dev)
-        e = check(f"tetris_matmul (M,N,K)=({m},{n},{k})",
-                  tm.tetris_matmul_cuda(x, w), tm.matmul_ref(x, w))
+    mnk = [(m, f, d, 0) for g, m, d, f in shapes["whisper_base"]]
+    # ragged tails; tile multiples +-1; K or N % 4 != 0 and an x offset by
+    # one float (x[:, 1:]) force the 4-byte instance
+    for m, n, k, off in mnk + [(1000, 1000, 96, 0), (130, 520, 72, 0),
+                               (128, 128, 32, 0), (127, 129, 33, 0),
+                               (129, 127, 31, 0), (4096, 516, 512, 0),
+                               (4096, 512, 510, 0), (4096, 512, 512, 1)]:
+        x = randn(rng, (m, k + off), dev)[:, off:]
+        w = randn(rng, (k, n), dev)
+        e = gemm_check(f"tetris_matmul (M,N,K)=({m},{n},{k})"
+                       + (f" x[:, {off}:]" if off else ""),
+                       tm.tetris_matmul_cuda, tm.matmul_ref, x, w, 1, m, n)
         errs["tetris_matmul"] = max(errs["tetris_matmul"], e)
-    for g, m, d, f in shapes["stablelm_1_6b"] + [(3, 100, 40, 72)]:
+    for g, m, d, f in shapes["stablelm_1_6b"] + [
+            (3, 100, 40, 72), (4, 129, 64, 127), (2, 127, 63, 128)]:
         x = randn(rng, (g, m, d), dev)
         # the executor's group-major view of a (D, G*F) kernel
         w = randn(rng, (d, g * f), dev).reshape(d, g, f).transpose(0, 1)
-        e = check(f"grouped_matmul (G,M,D,F)=({g},{m},{d},{f})",
-                  gm.grouped_matmul_cuda(x, w), gm.grouped_matmul_ref(x, w))
+        e = gemm_check(f"grouped_matmul (G,M,D,F)=({g},{m},{d},{f})",
+                       gm.grouped_matmul_cuda, gm.grouped_matmul_ref, x, w,
+                       g, m, f)
         errs["grouped_matmul"] = max(errs["grouped_matmul"], e)
     cases = [(bh, s, s, hd, c, 0) for bh, s, hd, _ in shapes["attention"]
              for c in (True, False)] + [(8, 128, 384, 64, True, 256)]
@@ -369,10 +407,13 @@ def launch_counts() -> dict:
 
 def serve_transformer(net, inputs, batch: int, dev, card: str) -> dict:
     """Phase 8 for one model: serve it through the compiled plan with
-    every count at 0 just before, hold the launches to the plan, and the
-    forward to the plain-function oracle.  Returns the launches."""
+    every count at 0 just before, hold the launches to the plan, the
+    matmul blocks to gemm_launch_dims, and the forward to the
+    plain-function oracle.  Returns (launches, matmul blocks)."""
     import torch
     from repro_torch.exec import execute_oracle, execute_plan
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import tetris_matmul as tm
     from repro_torch.launch import serve_cnn
     name = net.name
     reset_all_counts()
@@ -398,6 +439,16 @@ def serve_transformer(net, inputs, batch: int, dev, card: str) -> dict:
         if launches[k] != forwards * n:
             raise AssertionError(f"{name}: {k} launched {launches[k]} times"
                                  f" != {forwards} forwards x {n}")
+    blocks, tiles = gemm_blocks_per_forward(plan, batch)
+    got = {"tetris_matmul": tm.tetris_matmul_cuda.blocks,
+           "grouped_matmul": gm.grouped_matmul_cuda.blocks}
+    print(f"[transformer] {name}: matmul blocks launched {got} over "
+          f"{forwards} forwards (gemm_launch_dims per forward {blocks}; "
+          f"(G, M, N) -> tile {tiles})")
+    for k, n in blocks.items():
+        if got[k] != forwards * n:
+            raise AssertionError(f"{name}: {k} launched {got[k]} blocks "
+                                 f"!= {forwards} forwards x {n}")
     if launches["flash_attention"] == 0 or launches["tetris_matmul"] \
             + launches["grouped_matmul"] == 0:
         raise AssertionError(f"{name}: the serving path launched no "
@@ -419,7 +470,78 @@ def serve_transformer(net, inputs, batch: int, dev, card: str) -> dict:
           f"{stats.tokens_per_s:.1f} tokens/s on {card}")
     profile_call(f"{name} one forward", lambda: execute_plan(plan, ks, xs),
                  stats.s_per_batch * 1e3)
-    return launches
+    executor_copies(name, lambda: execute_plan(plan, ks, xs))
+    return launches, got
+
+
+def gemm_blocks_per_forward(plan, batch: int) -> tuple:
+    """({kernel: blocks per forward}, {(G, M, N): "bm x bn"}) of the
+    plan's matmul layers under gemm_launch_dims."""
+    from repro_torch.kernels import tetris_matmul as tm
+    blocks = {"tetris_matmul": 0, "grouped_matmul": 0}
+    tiles = {}
+    for lp in plan.layers:
+        lay, g = lp.mapping.layer, lp.mapping.group
+        gmn = (g, batch * lay.i_h, lay.oc // g)
+        d = tm.gemm_launch_dims(*gmn, tm.sm_count("cuda"))
+        blocks["grouped_matmul" if g > 1 else "tetris_matmul"] += d.blocks
+        tiles[gmn] = f"{d.bm}x{d.bn}"
+    return blocks, tiles
+
+
+@contextlib.contextmanager
+def labelled_matmul_executor():
+    """Within the block, each ``matmul_exec.matmul_layer`` call of the
+    plan runs in a ``record_function`` range ``matmul_layer``, and its
+    call of the matmul kernel's wrapper in a range ``matmul_kernel``."""
+    import torch
+    from repro_torch.exec import run
+    from repro_torch.kernels import matmul_exec as me
+    saved = (run.matmul_layer, me.grouped_matmul, me.tetris_matmul)
+
+    def label(name, fn):
+        def labelled(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return labelled
+    run.matmul_layer = label("matmul_layer", saved[0])
+    me.grouped_matmul = label("matmul_kernel", saved[1])
+    me.tetris_matmul = label("matmul_kernel", saved[2])
+    try:
+        yield
+    finally:
+        run.matmul_layer, me.grouped_matmul, me.tetris_matmul = saved
+
+
+def executor_copies(label: str, fn) -> None:
+    """One ``fn()`` under ``torch.profiler`` with the matmul executor
+    labelled: the device time spent in ``matmul_layer`` outside its call
+    of the kernel's wrapper — the executor's permute/reshape copies —
+    against the forward's device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with labelled_matmul_executor(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cpu = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CPU]
+    layers = [e for e in cpu if e.name == "matmul_layer"]
+    copies_us = (sum(e.device_time_total for e in layers)
+                 - sum(e.device_time_total for e in cpu
+                       if e.name == "matmul_kernel"))
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.key not in ("matmul_layer", "matmul_kernel"))
+    if not layers or total_us == 0:
+        print(f"[profile] {label}: matmul executor copies not measured "
+              f"({len(layers)} matmul_layer ranges, {total_us:.1f} us of "
+              f"device time)")
+        return
+    print(f"[profile] {label} one forward: the matmul executor's layout "
+          f"copies take {copies_us / 1e3:.4f} ms of device time over "
+          f"{len(layers)} matmul_layer calls ({100 * copies_us / total_us:.1f}"
+          f" % of the forward's {total_us / 1e3:.4f} ms)")
 
 
 def time_transformer_kernels(shapes, dev, card: str) -> dict:
@@ -451,16 +573,20 @@ def time_transformer_kernels(shapes, dev, card: str) -> dict:
               f"({by}); {flops / t['ms'] / 1e9:.3f} TFLOP/s kernel, "
               f"{flops / t['library_ms'] / 1e9:.3f} library on {card}")
 
+    def tile(g, m, n):
+        d = tm.gemm_launch_dims(g, m, n, tm.sm_count(dev))
+        return f" tile {d.bm}x{d.bn}, {d.blocks} blocks"
+
     for g, m, d, f in shapes["whisper_base"]:
         x, w = randn(rng, (m, d), dev), randn(rng, (d, f), dev)
-        add("tetris_matmul", f"(M,N,K)=({m},{f},{d})",
+        add("tetris_matmul", f"(M,N,K)=({m},{f},{d})" + tile(1, m, f),
             lambda: tm.tetris_matmul_cuda(x, w), lambda: tm.matmul_ref(x, w),
             lambda: torch.matmul(x, w), 2.0 * m * f * d,
             4.0 * (m * d + d * f + m * f))
     for g, m, d, f in shapes["stablelm_1_6b"]:
         x = randn(rng, (g, m, d), dev)
         w = randn(rng, (d, g * f), dev).reshape(d, g, f).transpose(0, 1)
-        add("grouped_matmul", f"(G,M,D,F)=({g},{m},{d},{f})",
+        add("grouped_matmul", f"(G,M,D,F)=({g},{m},{d},{f})" + tile(g, m, f),
             lambda: gm.grouped_matmul_cuda(x, w),
             lambda: gm.grouped_matmul_ref(x, w), lambda: torch.bmm(x, w),
             2.0 * g * m * d * f, 4.0 * g * (m * d + d * f + m * f))
@@ -473,8 +599,14 @@ def time_transformer_kernels(shapes, dev, card: str) -> dict:
             lambda: F.scaled_dot_product_attention(q, k, v,
                                                    is_causal=causal),
             *attention_work(bh, s, s, d, causal))
-    for t in totals.values():
+    for name, t in totals.items():
         t["bound_ms"], t["bound_by"] = bound_ms(t["flops"], t["bytes"])
+        print(f"[time] {name} summed: device {t['ms']:.5f} ms = "
+              f"{100 * t['bound_ms'] / t['ms']:.1f} % of its bound "
+              f"{t['bound_ms']:.6f} ms ({t['bound_by']}), "
+              f"{t['flops'] / t['ms'] / 1e9:.3f} TFLOP/s, "
+              f"{t['ms'] / t['library_ms']:.3f}x the library call's "
+              f"{t['library_ms']:.5f} ms on {card}")
     return totals
 
 
@@ -505,14 +637,17 @@ def transformer_phases(dev, card: str) -> list:
               f"(G, M, D, F) {shapes[arch]}")
     errs = transformer_kernel_checks(shapes, dev)
     launches = dict.fromkeys(errs, 0)
+    blocks = {}
     for arch, (net, batch) in nets.items():
         t0 = time.perf_counter()
         inputs = serve_cnn.serving_inputs(net, batch, SEED, dev)
         print(f"[transformer] {arch}: drew {len(inputs[0])} kernels and "
               f"the input in {time.perf_counter() - t0:.3f} s")
-        got = serve_transformer(net, inputs, batch, dev, card)
+        got, got_blocks = serve_transformer(net, inputs, batch, dev, card)
         for k in launches:
             launches[k] += got[k]
+        for k, n in got_blocks.items():
+            blocks[k] = blocks.get(k, 0) + n
         del inputs
     times = time_transformer_kernels(shapes, dev, card)
     paths = {
@@ -542,6 +677,8 @@ def transformer_phases(dev, card: str) -> list:
             "library_ms": t["library_ms"], "shapes": shape,
             "timing": "ms, library_ms: device time, stream held; call_ms, "
                       "plain_ms: per call incl. host"})
+        if name in blocks:          # blocks launched on its path
+            rows[-1]["blocks"] = blocks[name]
     return rows
 
 
@@ -841,7 +978,9 @@ def ops_phase(dev) -> None:
     each launching its own kernel exactly once."""
     import numpy as np
     import torch
+    from repro_torch.kernels import grouped_matmul as gm
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import tetris_matmul as tm
     rng = np.random.RandomState(SEED)
     calls = {
         "tetris_matmul": ("ops.matmul (4096,512)@(512,1536)", ops.matmul,
@@ -859,8 +998,11 @@ def ops_phase(dev) -> None:
                         ref.conv2d_ref, (randn(rng, (8, 28, 28, 32), dev),
                                          randn(rng, (5, 5, 32, 96), dev,
                                                0.1)))}
+    gemms = {"tetris_matmul": tm.tetris_matmul_cuda,
+             "grouped_matmul": gm.grouped_matmul_cuda}
     for name, (label, fn, plain, args) in calls.items():
         before = launch_counts()
+        blocks = gemms[name].blocks if name in gemms else 0
         y = fn(*args)
         torch.cuda.synchronize()
         after = launch_counts()
@@ -868,6 +1010,12 @@ def ops_phase(dev) -> None:
         check(f"{label} ({moved})", y, plain(*args))
         if moved != {name: 1}:
             raise AssertionError(f"{label} launched {moved}, not {name} once")
+        if name in gemms:
+            gmn = (1,) + tuple(y.shape) if y.dim() == 2 else tuple(y.shape)
+            want = tm.gemm_launch_dims(*gmn, tm.sm_count(dev)).blocks
+            if gemms[name].blocks - blocks != want:
+                raise AssertionError(f"{label}: {gemms[name].blocks - blocks}"
+                                     f" blocks launched != {want}")
 
 
 def time_new_kernels(conv_data, dev, card: str) -> dict:

@@ -8,18 +8,20 @@ them.  On a TPU ``_gmm_kernel`` iterates only the G diagonal blocks over
 the grid ``(G, ⌈M/bm⌉, ⌈F/bf⌉)`` with full-D contraction.  Here the
 CUDA kernel of ``csrc/matmul.cu`` (entry ``grouped_matmul_f32``) does the
 same with the group on ``blockIdx.z`` and per-group strides, so the
-executor's group-major view of the weights is read in place.
+executor's group-major view of the weights is read in place, with the
+block tile of ``tetris_matmul.gemm_launch_dims``.
 
 :func:`grouped_matmul` launches it for CUDA tensors (counted in
-``grouped_matmul_cuda.launches``) and takes :func:`grouped_matmul_ref`,
-the plain version, only for CPU tensors.
+``grouped_matmul_cuda.launches``, the blocks the C entry reports in
+``.blocks``) and takes :func:`grouped_matmul_ref`, the plain version,
+only for CPU tensors.
 """
 from __future__ import annotations
 
 import torch
 
-from ._build import cuda_operand, launch, ptr
-from .tetris_matmul import _library
+from ._build import cuda_operand
+from .tetris_matmul import _library, launch_gemm
 
 
 def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -30,7 +32,8 @@ def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Launch the kernel (replaces ``_gmm_kernel``): x (G, M, D) @
     w (G, D, F) -> (G, M, F) f32 on the card.  Counts its launches in
-    ``grouped_matmul_cuda.launches``."""
+    ``grouped_matmul_cuda.launches`` and the blocks they ran in
+    ``.blocks``."""
     x, w = cuda_operand(x, "x"), cuda_operand(w, "w")
     (g, m, d), (g2, d2, f) = x.shape, w.shape
     if (g, d) != (g2, d2) or x.device != w.device:
@@ -38,18 +41,21 @@ def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                          f"{tuple(w.shape)} on {w.device} do not multiply "
                          f"group by group")
     out = torch.empty((g, m, f), dtype=torch.float32, device=x.device)
-    launch(_library().grouped_matmul_f32, x.device, ptr(x), ptr(w),
-           ptr(out), g, m, f, d, x.stride(1), w.stride(1), out.stride(1),
-           x.stride(0), w.stride(0), out.stride(0))
+    grouped_matmul_cuda.blocks += launch_gemm(
+        _library().grouped_matmul_f32, x, w, out, g, m, f, g, m, f, d,
+        x.stride(1), w.stride(1), out.stride(1), x.stride(0), w.stride(0),
+        out.stride(0))
     grouped_matmul_cuda.launches += 1
     return out
 
 
 grouped_matmul_cuda.launches = 0
+grouped_matmul_cuda.blocks = 0
 
 
 def reset_counts() -> None:
     grouped_matmul_cuda.launches = 0
+    grouped_matmul_cuda.blocks = 0
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,8 @@ interpret mode on a CPU.  Here each wrapper calls its kernel's dispatcher:
 CUDA tensors launch the hand-written kernel, CPU tensors take its plain
 version.  The device comes from the inputs; there is no ``interpret``.
 The TPU tile arguments (``block``, ``bm``, ``bf``) are refused: the CUDA
-kernels pick their own tiles, and a tile rule waits for the autotuner.
+kernels pick their own tiles (the matmuls by
+``tetris_matmul.gemm_launch_dims``).
 ``conv2d``'s ``window`` stays, because it sets the launch grid.
 """
 from __future__ import annotations
@@ -24,7 +25,7 @@ def _no_tiles(**tiles) -> None:
     given = sorted(k for k, v in tiles.items() if v is not None)
     if given:
         raise ValueError(f"{given}: the CUDA kernels pick their own tiles "
-                         f"(a tile rule waits for the autotuner)")
+                         f"(tetris_matmul.gemm_launch_dims)")
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor,

@@ -1,9 +1,10 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
 the sdk kernels (the window kernel also with runs of windows and at
-stride 2), tetris_matmul, grouped_matmul and flash_attention, the
-last also through the attention stage at a ragged length, ssd_chunk
-(also through the SSD mixer) and im2win_conv (also through the ops
-surface, with each of its kernels).  Marked
+stride 2), tetris_matmul and grouped_matmul (both instances of their
+GEMM body, the blocks launched held to the launch rule),
+flash_attention, the last also through the attention stage at a ragged
+length, ssd_chunk (also through the SSD mixer) and im2win_conv (also
+through the ops surface, with each of its kernels).  Marked
 ``cuda``: without a CUDA device each test skips.  On the card:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
@@ -141,6 +142,68 @@ def test_grouped_matmul_matches_plain(cuda, gmdf):
     want = gm.grouped_matmul_ref(x, w)
     _close(y, want)
     _close(yv, want)
+
+
+#: (M, N, K, x's column offset in a wider buffer, 16-byte instance?):
+#: tile multiples and +-1 in each of M, N and K at both block tiles; a K
+#: or N that is not a multiple of 4 and an x offset by one float take
+#: the 4-byte instance
+GEMM_CASES = [
+    (256, 256, 64, 0, True), (255, 256, 64, 0, True),
+    (257, 256, 64, 0, True), (256, 255, 64, 0, False),
+    (256, 257, 64, 0, False), (256, 260, 64, 0, True),
+    (256, 256, 63, 0, False), (256, 256, 65, 0, False),
+    (256, 256, 68, 0, True), (4096, 512, 2047, 0, False),
+    (17000, 384, 32, 0, True), (129, 129, 33, 0, False),
+    (256, 256, 64, 1, False), (300, 200, 100, 4, True),
+    (300, 200, 100, 3, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k,off,vector", GEMM_CASES)
+def test_tetris_matmul_both_instances(cuda, m, n, k, off, vector):
+    """Both instances of the GEMM body against the plain version, with
+    the blocks the C entry reports held to gemm_launch_dims."""
+    from repro_torch.kernels import tetris_matmul as tm
+    x = _rand(cuda, m, k + off, seed=5)[:, off:]
+    w = _rand(cuda, k, n, seed=6)
+    out = torch.empty(m, n, device=cuda)
+    assert tm.vector_staging(x, w, out) == vector
+    tm.reset_counts()
+    y = tm.tetris_matmul(x, w)
+    torch.cuda.synchronize()
+    assert tm.tetris_matmul_cuda.launches == 1
+    assert tm.tetris_matmul_cuda.blocks == tm.gemm_launch_dims(
+        1, m, n, tm.sm_count(cuda)).blocks
+    _close(y, tm.matmul_ref(x, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gmdf,vector", [
+    ((4, 2048, 512, 1408), True), ((4, 2048, 1408, 512), True),
+    ((4, 127, 64, 128), True), ((4, 129, 64, 128), True),
+    ((3, 128, 63, 128), False), ((3, 128, 65, 128), False),
+    ((3, 128, 68, 132), True),
+    ((2, 128, 64, 127), False), ((2, 128, 64, 129), False),
+    ((5, 100, 40, 30), False)])
+def test_grouped_matmul_weight_view_in_place(cuda, gmdf, vector):
+    """The matmul executor's group-major weight view, kernel (D, G*F)
+    read in place as (G, D, F), through both instances, at tile
+    multiples and +-1 in M, D and F."""
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import tetris_matmul as tm
+    g, m, d, f = gmdf
+    x = _rand(cuda, g, m, d, seed=7)
+    w = _rand(cuda, d, g * f, seed=8).reshape(d, g, f).transpose(0, 1)
+    assert tm.vector_staging(x, w, torch.empty(g, m, f, device=cuda)) \
+        == vector
+    gm.reset_counts()
+    y = gm.grouped_matmul(x, w)
+    torch.cuda.synchronize()
+    assert gm.grouped_matmul_cuda.launches == 1
+    assert gm.grouped_matmul_cuda.blocks == tm.gemm_launch_dims(
+        g, m, f, tm.sm_count(cuda)).blocks
+    _close(y, gm.grouped_matmul_ref(x, w))
 
 
 @pytest.mark.cuda
