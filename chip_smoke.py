@@ -11,19 +11,24 @@ Phases, each of which raises on failure (exit code != 0):
    into ``build/kernels/``;
 3. kernels vs plain — both sdk kernels against ``sdk_conv_plain`` on the
    card, on every sdk layer of cnn8, DN40-b2l3, Incep-3b and a stride-2
-   layer at batch 8, with launched steps held to ``mapping.cycles`` and
-   the window kernel's launch layout (images, run, columns, blocks) per
-   tile printed;
+   layer at batch 8, with launched steps held to ``mapping.cycles``, the
+   blocks the whole kernel's C entry reports held to
+   ``whole_launch_dims``, and each kernel's launch layout (images, run,
+   columns, blocks) per tile printed;
 4. main path — ``repro_torch.launch.serve_cnn.main`` serves cnn8 with the
    ``auto`` policy; the plan must be reference + five sdk layers, the
    whole kernel's launch count must grow by (warmup + steps) x its
-   launches per forward, and a forward must match ``execute_oracle``;
+   launches per forward and its blocks by as many times
+   ``whole_launch_dims``'s, and a forward must match ``execute_oracle``;
+   one forward under ``torch.profiler`` gives the device's busy share;
 5. window path — the cnn8 forward with ``block="window"`` and the
    densenet40 forward (policy auto) against ``execute_oracle``, the
    window kernel's launches counted per net (under ``auto`` no served
    mapping reaches it below batch 128, so they all come from cnn8);
-6. sdk times at the main path's shapes, and the window kernel forced on
-   Incep-3b at batch 8 (the kind of layer it was built for);
+6. sdk times: the whole kernel, the window kernel forced and
+   ``F.conv2d`` in interleaved rounds (medians) on cnn8's five sdk
+   layers (the main path's shapes, summed), DN40-b2l3, Incep-3b and the
+   stride-2 layer at batch 8;
 7. transformer kernels vs plain — tetris_matmul, grouped_matmul and
    flash_attention against their plain versions at the shapes of the
    transformer path and at ragged tails, causal or not, with a
@@ -41,14 +46,16 @@ Phases, each of which raises on failure (exit code != 0):
    launches per forward, the matmul blocks the forwards times
    ``gemm_launch_dims``'s, and a forward must match ``execute_oracle``
    (plain functions only); one forward under ``torch.profiler`` gives
-   its device time beside the serving loop's wall time, and one more
+   its device time beside the serving loop's wall time (the busy share)
+   and attention's share of it, and one more
    (with Python frames) the device time of the matmul executor's layout
    copies;
 9. transformer kernel times: device time with the stream held, per-call
    time, the plain version's, the bound and the library call's
    (``torch.matmul``, ``torch.bmm``, ``F.scaled_dot_product_attention``,
    timed as yardsticks only), and per kernel its share of the bound and
-   its ratio to the library call;
+   its ratio to the library call; flash_attention at 128 and at 64 rows
+   a block against SDPA in interleaved rounds, SDPA's kernels named;
 10. ssd_chunk and im2win_conv vs plain — ``ssd_chunk`` against
     ``ssd_chunk_plain`` at mamba2-130m's prefill shape (B 4, S 2048, H 24,
     P 64, N 128, L 256), at a ragged prompt (S 2000, padded to 2048), at
@@ -68,8 +75,11 @@ Phases, each of which raises on failure (exit code != 0):
     prefill through the plain versions; one prefill under
     ``torch.profiler``;
 12. the ops surface — ``ops.matmul``, ``ops.gmm``, ``ops.attention`` and
-    ``ops.conv2d`` once each at a path shape, each launching its kernel
-    (the matmuls the blocks of ``gemm_launch_dims``);
+    ``ops.conv2d`` at a path shape, in f32 and in bf16, each launching its
+    kernel once (the matmuls the blocks of ``gemm_launch_dims``) and
+    returning its operands' dtype; a bf16 result within one bf16 rounding
+    of the plain version in f32, with the device time of the casts of the
+    three wrappers whose kernel is f32;
 13. ssd_chunk and im2win_conv times, as in 9;
 14. a ``{"kernels": [...]}`` line: per kernel its launches, error, time
     at its path's shapes, the plain version's time, the least time the
@@ -127,6 +137,8 @@ LOGITS_RTOL = 2e-2
 #: the transformer path: (config, seq, batch), full width and depth
 TRANSFORMERS = (("stablelm_1_6b", 512, 4), ("whisper_base", 1024, 4))
 TF_WARMUP, TF_STEPS = 1, 20
+#: interleaved rounds of the kernel-vs-kernel timings (medians)
+ROUNDS = 5
 #: ragged attention-stage lengths per model: whisper's real 30 s window
 #: (1500 frames) and a length just past one 128 block
 RAGGED_SEQ = {"whisper_base": 1500, "stablelm_1_6b": 136}
@@ -221,12 +233,59 @@ def conv_bound_ms(mapping) -> tuple:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def window_layout(geom) -> tuple:
-    """(b_chunk, run, oc_b, blocks) of the window kernel's launch on one
-    tile at BATCH."""
+def sdk_layout(mode: str, geom) -> tuple:
+    """(b_chunk, run, oc_b, blocks) of the whole or window kernel's launch
+    on one tile at BATCH."""
     from repro_torch.kernels import sdk_conv as sk
-    d = sk.window_launch_dims(BATCH, geom)
+    rule = sk.whole_launch_dims if mode == "whole" else sk.window_launch_dims
+    d = rule(BATCH, geom)
     return d.b_chunk, d.run, d.oc_b, d.blocks
+
+
+def whole_blocks(mapping) -> int:
+    """Blocks of the whole kernel's launches on one sdk layer at BATCH
+    under whole_launch_dims: every tile once per group."""
+    from repro_torch.kernels import sdk_conv as sk
+    return mapping.group * sum(
+        sk.whole_launch_dims(BATCH, sk.tile_geom(mapping, t)).blocks
+        for t in mapping.tiles)
+
+
+def interleaved_ms(fns: dict, iters: int, rounds: int) -> dict:
+    """Median device time (stream held) of each ``fns`` entry over
+    ``rounds`` rounds that take the entries in turn."""
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            times[name].append(device_ms(fn, iters))
+    return {name: sorted(t)[len(t) // 2] for name, t in times.items()}
+
+
+def sdk_times(m, rng, dev) -> dict:
+    """One sdk layer at BATCH: the whole kernel, the window kernel forced
+    and F.conv2d interleaved (device time, a launch per tile call, no zero
+    fill: every timed tile covers its output), each kernel's per-call time
+    and the plain version's."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import sdk_conv as sk
+    x, k = layer_data(m, rng, dev)
+    runs = {}
+    for mode, fn in (("whole", sk.sdk_whole), ("window", sk.sdk_window)):
+        cs = sk.tile_calls(m, x, k, block=mode)
+        runs[mode] = (lambda fn=fn, cs=cs: [fn(c.xt, c.kt, c.geom)
+                                            for c in cs])
+    w_oihw = k.permute(3, 2, 0, 1).contiguous()
+    runs["library"] = lambda: F.conv2d(x, w_oihw, stride=m.layer.stride,
+                                       groups=m.group)
+    cs = sk.tile_calls(m, x, k)
+    t = interleaved_ms(runs, max(8, 200 // len(cs)), ROUNDS)
+    for mode in ("whole", "window"):
+        t[mode + "_call"] = call_ms(runs[mode], iters=200)
+    t["plain"] = call_ms(lambda: [sk.tile_plain(c.xt, c.kt, c.geom, c.mode)
+                                  for c in cs], iters=20)
+    torch.cuda.synchronize()
+    return t
 
 
 def max_err(y, ref) -> tuple:
@@ -469,7 +528,7 @@ def serve_transformer(net, inputs, batch: int, dev, card: str) -> dict:
           f"{stats.s_per_batch * 1e3:.4f} ms/batch, "
           f"{stats.tokens_per_s:.1f} tokens/s on {card}")
     profile_call(f"{name} one forward", lambda: execute_plan(plan, ks, xs),
-                 stats.s_per_batch * 1e3)
+                 stats.s_per_batch * 1e3, "flash_attention")
     executor_copies(name, lambda: execute_plan(plan, ks, xs))
     return launches, got
 
@@ -593,12 +652,30 @@ def time_transformer_kernels(shapes, dev, card: str) -> dict:
     for bh, s, d, causal in shapes["attention"]:
         q = randn(rng, (bh, s, d), dev)
         k, v = randn(rng, (bh, s, d), dev), randn(rng, (bh, s, d), dev)
-        add("flash_attention", f"BH={bh} S={s} D={d} causal={causal}",
-            lambda: fa.flash_attention_cuda(q, k, v, causal=causal),
-            lambda: fa.flash_attention_ref(q, k, v, causal=causal),
-            lambda: F.scaled_dot_product_attention(q, k, v,
-                                                   is_causal=causal),
-            *attention_work(bh, s, s, d, causal))
+        rule = fa.flash_launch_dims(bh, s, d, tm.sm_count(dev),
+                                    causal=causal)
+        runs = {rows: (lambda rows=rows: fa.flash_attention_cuda(
+            q, k, v, causal=causal, rows=rows)) for rows in fa.BLOCK_ROWS}
+        runs["sdpa"] = lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal)
+        t = interleaved_ms(runs, 20, ROUNDS)
+        flops, nbytes = attention_work(bh, s, s, d, causal)
+        got = {"ms": t[rule.rows], "call_ms": call_ms(runs[rule.rows], 20),
+               "plain_ms": call_ms(lambda: fa.flash_attention_ref(
+                   q, k, v, causal=causal), 5),
+               "library_ms": t["sdpa"], "flops": flops, "bytes": nbytes}
+        for key in keys:
+            totals["flash_attention"][key] += got[key]
+        bound, by = bound_ms(flops, nbytes)
+        print(f"[time] flash_attention BH={bh} S={s} D={d} causal={causal} "
+              f"(medians of {ROUNDS} interleaved rounds): 128 rows "
+              f"{t[128]:.5f} ms ({flops / t[128] / 1e9:.3f} TFLOP/s), 64 rows "
+              f"{t[64]:.5f} ms ({flops / t[64] / 1e9:.3f} TFLOP/s); the rule "
+              f"takes {rule.rows} rows ({rule.blocks} blocks); per call "
+              f"{got['call_ms']:.5f} ms, plain {got['plain_ms']:.5f} ms; SDPA "
+              f"{t['sdpa']:.5f} ms ({flops / t['sdpa'] / 1e9:.3f} TFLOP/s; "
+              f"its kernels {device_kernel_names(runs['sdpa'])}); bound "
+              f"{bound:.6f} ms ({by}) on {card}")
     for name, t in totals.items():
         t["bound_ms"], t["bound_by"] = bound_ms(t["flops"], t["bytes"])
         print(f"[time] {name} summed: device {t['ms']:.5f} ms = "
@@ -942,6 +1019,18 @@ def compute_dtype(dtype):
         common.COMPUTE_DTYPE = old
 
 
+def device_kernel_names(fn) -> list:
+    """The names of the device kernels one ``fn()`` runs (torch.profiler),
+    each cut to 60 characters."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key[:60] for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
 def profile_call(label: str, fn, wall_ms: float, kernel: str = "") -> None:
     """One ``fn()`` under ``torch.profiler``: its device time (kernels,
     copies, fills) beside the call's wall time when it serves (their
@@ -973,9 +1062,12 @@ def profile_call(label: str, fn, wall_ms: float, kernel: str = "") -> None:
               f" ms" for e in top))
 
 
-def ops_phase(dev) -> None:
-    """Phase 12: each public wrapper once at a path shape on the card,
-    each launching its own kernel exactly once."""
+def ops_phase(dev, card: str) -> None:
+    """Phase 12: each public wrapper once at a path shape on the card, in
+    f32 and in bf16, each launching its own kernel exactly once; a bf16
+    result in bf16 within one bf16 rounding of the plain version in f32.
+    For the three wrappers that cast bf16 to f32 around their f32 kernel,
+    the casts' device time beside the kernel's."""
     import numpy as np
     import torch
     from repro_torch.kernels import grouped_matmul as gm
@@ -1000,22 +1092,53 @@ def ops_phase(dev) -> None:
                                                0.1)))}
     gemms = {"tetris_matmul": tm.tetris_matmul_cuda,
              "grouped_matmul": gm.grouped_matmul_cuda}
-    for name, (label, fn, plain, args) in calls.items():
-        before = launch_counts()
-        blocks = gemms[name].blocks if name in gemms else 0
-        y = fn(*args)
-        torch.cuda.synchronize()
-        after = launch_counts()
-        moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-        check(f"{label} ({moved})", y, plain(*args))
-        if moved != {name: 1}:
-            raise AssertionError(f"{label} launched {moved}, not {name} once")
-        if name in gemms:
-            gmn = (1,) + tuple(y.shape) if y.dim() == 2 else tuple(y.shape)
-            want = tm.gemm_launch_dims(*gmn, tm.sm_count(dev)).blocks
-            if gemms[name].blocks - blocks != want:
-                raise AssertionError(f"{label}: {gemms[name].blocks - blocks}"
-                                     f" blocks launched != {want}")
+    for dtype in (torch.float32, torch.bfloat16):
+        bf = dtype == torch.bfloat16
+        for name, (label, fn, plain, f32_args) in calls.items():
+            args = tuple(a.to(dtype) for a in f32_args)
+            label = f"{label} {'bf16' if bf else 'f32'}"
+            before = launch_counts()
+            blocks = gemms[name].blocks if name in gemms else 0
+            y = fn(*args)
+            torch.cuda.synchronize()
+            after = launch_counts()
+            moved = {k: after[k] - before[k] for k in after
+                     if after[k] != before[k]}
+            check(f"{label} -> {str(y.dtype)[6:]} ({moved})", y,
+                  plain(*(a.float() for a in args)),
+                  BF16_RTOL if bf else KERNEL_RTOL)
+            if moved != {name: 1} or y.dtype != dtype:
+                raise AssertionError(f"{label} launched {moved}, not {name} "
+                                     f"once, or returned {y.dtype}")
+            if name in gemms:
+                gmn = (1,) + tuple(y.shape) if y.dim() == 2 else tuple(
+                    y.shape)
+                want = tm.gemm_launch_dims(*gmn, tm.sm_count(dev)).blocks
+                if gemms[name].blocks - blocks != want:
+                    raise AssertionError(f"{label}: "
+                                         f"{gemms[name].blocks - blocks} "
+                                         f"blocks launched != {want}")
+            if bf:
+                ops_bf16_times(label, name, fn, args, card)
+
+
+def ops_bf16_times(label: str, name: str, fn, args, card: str) -> None:
+    """Device times of one bf16 wrapper call: the call, the same wrapper
+    on f32 copies of its operands (the kernel alone for the three f32
+    kernels) and, for those three, the casts the bf16 call adds (operands
+    to f32, the result to bf16)."""
+    import torch
+    f32 = tuple(a.float() for a in args)
+    y32 = fn(*f32)
+    runs = {"bf16": lambda: fn(*args), "f32": lambda: fn(*f32)}
+    if name != "flash_attention":
+        runs["casts"] = lambda: ([a.float() for a in args],
+                                 y32.to(torch.bfloat16))
+    t = interleaved_ms(runs, 20, 3)
+    casts = (f", its casts {t['casts']:.5f} ms" if "casts" in t else
+             " (the kernel loads bf16 itself)")
+    print(f"[time] {label}: device {t['bf16']:.5f} ms, the f32 call "
+          f"{t['f32']:.5f} ms{casts} on {card}")
 
 
 def time_new_kernels(conv_data, dev, card: str) -> dict:
@@ -1089,7 +1212,7 @@ def ssd_conv_phases(dev, card: str) -> list:
     ssd_err = ssd_kernel_checks(dev)
     conv_launches, conv_err, conv_data, conv_grid = conv_path(dev)
     mamba_launches = mamba_phase(dev, card)
-    ops_phase(dev)
+    ops_phase(dev, card)
     times = time_new_kernels(conv_data, dev, card)
     timing = ("ms, library_ms: device time, stream held; call_ms, plain_ms: "
               "per call incl. host")
@@ -1184,10 +1307,12 @@ def main() -> int:
             torch.cuda.synchronize()
             err, rel, scale = max_err(y, ref)
             ok = rel <= KERNEL_RTOL and fn.steps == m.cycles
-            dims = ""
-            if mode == "window":
-                dims = " (b_chunk, run, oc_b, blocks) " + " ".join(
-                    str(window_layout(sk.tile_geom(m, t))) for t in m.tiles)
+            dims = " (b_chunk, run, oc_b, blocks) " + " ".join(
+                str(sdk_layout(mode, sk.tile_geom(m, t))) for t in m.tiles)
+            if mode == "whole":
+                dims += (f"; blocks launched {sk.sdk_whole.blocks} "
+                         f"(whole_launch_dims {whole_blocks(m)})")
+                ok = ok and sk.sdk_whole.blocks == whole_blocks(m)
             print(f"[kernel] {m.layer.name:10s} {mode:6s} tiles="
                   f"{len(m.tiles)} G={m.group} launches={fn.launches} "
                   f"steps={fn.steps} cycles={m.cycles} max_abs_err={err:.3e}"
@@ -1195,7 +1320,8 @@ def main() -> int:
                   f" {'ok' if ok else 'FAIL'}{dims}")
             if not ok:
                 raise AssertionError(f"{m.layer.name} {mode}: kernel vs "
-                                     f"plain or steps vs cycles failed")
+                                     f"plain, steps vs cycles or blocks vs "
+                                     f"whole_launch_dims failed")
             errors[mode] = max(errors[mode], err)
 
     # -- 4. main path: serve cnn8 through the compiled plan ----------------
@@ -1208,20 +1334,32 @@ def main() -> int:
     plan = stats.plan
     if plan.executors != ("reference", "sdk", "sdk", "sdk", "sdk", "sdk"):
         raise AssertionError(f"cnn8 plan executors {plan.executors}")
+    main_blocks = sk.sdk_whole.blocks
     per_fwd = {"whole": 0, "window": 0}
+    blocks_per_fwd = 0
     for lp in plan.layers:
         if lp.executor == "sdk":
             m = lp.mapping
             for t in m.tiles:
-                mode = sk.resolve_block(lp.block, BATCH, sk.tile_geom(m, t),
-                                        m.layer, lp.vmem_budget)
+                g = sk.tile_geom(m, t)
+                mode = sk.resolve_block(lp.block, BATCH, g, m.layer,
+                                        lp.vmem_budget)
                 per_fwd[mode] += m.group
+                if mode == "whole":
+                    blocks_per_fwd += m.group * sk.whole_launch_dims(
+                        BATCH, g).blocks
     forwards = WARMUP + STEPS
     for mode in per_fwd:
         if main_launches[mode] != forwards * per_fwd[mode]:
             raise AssertionError(
                 f"{mode} kernel: {main_launches[mode]} launches on the "
                 f"serving path != {forwards} forwards x {per_fwd[mode]}")
+    print(f"[main] sdk_whole blocks launched {main_blocks} over {forwards} "
+          f"forwards == whole_launch_dims {forwards} x {blocks_per_fwd}: "
+          f"{main_blocks == forwards * blocks_per_fwd}")
+    if main_blocks != forwards * blocks_per_fwd:
+        raise AssertionError("the served sdk_whole launches ran other blocks "
+                             "than whole_launch_dims gives")
     if main_launches["whole"] == 0:
         raise AssertionError("the serving path never launched the whole "
                              "kernel")
@@ -1242,6 +1380,8 @@ def main() -> int:
         raise AssertionError("cnn8 forward disagrees with the oracle")
     print(f"[main] cnn8 batch {BATCH}: {stats.images_per_s:.1f} images/s, "
           f"{stats.s_per_batch * 1e3:.4f} ms/batch on {card}")
+    profile_call("cnn8 one forward", lambda: execute_plan(plan, ks, xs),
+                 stats.s_per_batch * 1e3, "sdk_whole")
 
     # -- 5. window path -----------------------------------------------------
     nets = (("cnn8", cnn8, "window"), ("densenet40", dn40, "auto"))
@@ -1276,52 +1416,34 @@ def main() -> int:
 
     # -- 6. times at the main path's shapes --------------------------------
     rows = []
-    layers = [lp.mapping for lp in plan.layers if lp.executor == "sdk"]
-    keys = ("whole", "window", "whole_call", "window_call", "plain",
-            "library", "bound")
-    totals = dict.fromkeys(keys, 0.0)
+    totals = dict.fromkeys(("whole", "window", "whole_call", "window_call",
+                            "plain", "library", "bound"), 0.0)
     bound_by = {}
     rng = np.random.RandomState(SEED)
-    for m in layers:
-        x, k = layer_data(m, rng, dev)
-        t = {}
-        for mode, fn in (("whole", sk.sdk_whole), ("window", sk.sdk_window)):
-            cs = sk.tile_calls(m, x, k, block=mode)
-            run = (lambda fn=fn, cs=cs: [fn(c.xt, c.kt, c.geom) for c in cs])
-            # one kernel per tile call (no zero fill: every served tile
-            # covers its output)
-            t[mode] = device_ms(run, iters=max(4, 400 // (2 * len(cs))))
-            t[mode + "_call"] = call_ms(run, iters=200)
-        cs = sk.tile_calls(m, x, k)
-        t["plain"] = call_ms(lambda cs=cs: [
-            sk.tile_plain(c.xt, c.kt, c.geom, c.mode) for c in cs], iters=20)
-        w_oihw = k.permute(3, 2, 0, 1).contiguous()
-        t["library"] = device_ms(lambda: torch.nn.functional.conv2d(
-            x, w_oihw, stride=m.layer.stride, groups=m.group), iters=100)
+    layers = [lp.mapping for lp in plan.layers if lp.executor == "sdk"]
+    extra = [m for m in cases if m.layer.name in ("DN40-b2l3", "Incep-3b",
+                                                  "s2")]
+    for m in layers + extra:
+        t = sdk_times(m, rng, dev)
         t["bound"], bound_by[m.layer.name] = conv_bound_ms(m)
-        for key in totals:
-            totals[key] += t[key]
-        print(f"[time] {m.layer.name} batch {BATCH}: device whole "
-              f"{t['whole']:.5f} ms, window {t['window']:.5f} ms; per call "
-              f"whole {t['whole_call']:.5f} ms, window "
-              f"{t['window_call']:.5f} ms, plain {t['plain']:.5f} ms; "
-              f"F.conv2d {t['library']:.5f} ms; bound {t['bound']:.6f} ms "
-              f"({bound_by[m.layer.name]}) on {card}")
-    incep3b = next(m for m in cases if m.layer.name == "Incep-3b")
-    x, k = layer_data(incep3b, rng, dev)
-    cs = sk.tile_calls(incep3b, x, k, block="window")
-    t_win = device_ms(lambda: [sk.sdk_window(c.xt, c.kt, c.geom)
-                               for c in cs], iters=50)
-    w_oihw = k.permute(3, 2, 0, 1).contiguous()
-    t_lib = device_ms(lambda: torch.nn.functional.conv2d(
-        x, w_oihw, groups=incep3b.group), iters=100)
-    b3, b3_by = conv_bound_ms(incep3b)
-    print(f"[time] sdk_window forced on Incep-3b batch {BATCH} ({len(cs)} "
-          f"launches, G={incep3b.group}, (b_chunk, run, oc_b, blocks) "
-          f"{window_layout(cs[0].geom)}): device {t_win:.5f} ms, F.conv2d "
-          f"{t_lib:.5f} ms, bound {b3:.6f} ms ({b3_by}) on {card}")
-    by = ("operations" if list(bound_by.values()).count("operations")
-          * 2 > len(bound_by) else "bytes")
+        if m in layers:
+            for key in totals:
+                totals[key] += t[key]
+        print(f"[time] {m.layer.name} batch {BATCH} ({len(m.tiles) * m.group}"
+              f" launches; whole (b_chunk, run, oc_b, blocks) "
+              f"{sdk_layout('whole', sk.tile_geom(m, m.tiles[0]))}): device "
+              f"whole {t['whole']:.5f} ms, window {t['window']:.5f} ms, "
+              f"F.conv2d {t['library']:.5f} ms (medians of {ROUNDS} "
+              f"interleaved rounds); per call whole {t['whole_call']:.5f} ms,"
+              f" window {t['window_call']:.5f} ms, plain {t['plain']:.5f} ms;"
+              f" bound {t['bound']:.6f} ms ({bound_by[m.layer.name]}) on "
+              f"{card}")
+    print(f"[time] cnn8 sdk layers CNN8-3..7 batch {BATCH}, summed: device "
+          f"whole {totals['whole']:.5f} ms, window {totals['window']:.5f} ms,"
+          f" F.conv2d {totals['library']:.5f} ms; whole "
+          f"{totals['whole'] / totals['library']:.3f}x F.conv2d on {card}")
+    by = ("operations" if [bound_by[m.layer.name] for m in layers].count(
+        "operations") * 2 > len(layers) else "bytes")
     for name, mode, site, launches in (
             ("sdk_whole", "whole", WHOLE_SITE, main_launches["whole"]),
             ("sdk_window", "window", WINDOW_SITE, win_launches["window"])):
@@ -1333,11 +1455,14 @@ def main() -> int:
                      "cnn8 forward with block=window (the densenet40 auto "
                      "forward launches none)"),
             "max_abs_err": errors[mode], "ms": totals[mode],
-            "call_ms": totals[mode + "_call"], "plain_ms": totals["plain"], "bound_ms": totals["bound"],
-            "bound_by": by, "library_ms": totals["library"],
+            "call_ms": totals[mode + "_call"], "plain_ms": totals["plain"],
+            "bound_ms": totals["bound"], "bound_by": by,
+            "library_ms": totals["library"],
             "shapes": "cnn8 sdk layers CNN8-3..7 at batch 8, summed",
-            "timing": "ms, library_ms: device time, stream held; call_ms, "
-                      "plain_ms: per call incl. host"})
+            "timing": "ms, library_ms: device time, stream held, median of "
+                      "interleaved rounds; call_ms, plain_ms: per call incl."
+                      " host"})
+    rows[0]["blocks"] = main_blocks          # on the served path
     # -- 7-9. the transformer path ---------------------------------------
     rows += transformer_phases(dev, card)
     # -- 10-13. ssd_chunk, im2win_conv, the mamba2-130m path, ops -------

@@ -37,16 +37,27 @@
 // the plain version to ~1e-5 relative).  At the main path's shapes (cnn8
 // at batch 8) the layers are small: a few MFLOP each, so a launch is
 // bound by latency and by the card not being filled, not by bytes or
-// FLOP/s.  The whole kernel keeps each thread on one output element with
-// px fastest, so stores and x loads are coalesced along a row and the w
-// load is a broadcast across the row's threads.  The window kernel is
-// laid out to fill the card: kernels/sdk_conv.py::window_launch_dims
-// gives a block one window and one image, and splits oc_t into column
-// parts, until a launch has about 132 blocks; it gives a block a run of
-// windows (and the double buffer) only past two waves.  A block stages
-// its kernel block and the patch in shared memory and runs
-// window_product.cuh's register-tiled product, which im2win_conv.cu
-// shares.  wgmma, TMA and bf16 are later work.
+// FLOP/s.  Both kernels are therefore laid out to fill the card, and both
+// run one block body, window_block: the block stages its kernel block
+// (k_h*k_w x ic_t x oc_b columns) in shared memory once and a window
+// patch at a time with cp.async, and runs window_product.cuh's
+// register-tiled product (which im2win_conv.cu shares), its rows the
+// (image, output position) pairs of the window at stride s.  What the two
+// kernels differ in is what a block owns, as the TPU's whole-array block
+// differs from its blocked one:
+//
+//   sdk_whole_kernel   one window (one TPU grid step), so one patch slot
+//                      and no double buffer; kernels/sdk_conv.py::
+//                      whole_launch_dims splits oc_t into column parts
+//                      until a launch has about 132 blocks, and past two
+//                      waves gives a block several images;
+//   sdk_window_kernel  a run of consecutive windows, the copy of window
+//                      t+1 in flight in a second slot while window t is
+//                      computed (the TPU kernel's two VMEM slots and DMA
+//                      semaphores); window_launch_dims takes runs only
+//                      past two waves of blocks.
+//
+// wgmma, TMA and bf16 are later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,12 +75,10 @@ struct SdkGeom {
   int step_y, step_x, nx, nw;     // ceil-form window raster
   int lim_y, lim_x;               // border clamps (on the stride grid)
   int b_chunk;                    // images per block
-  int run;                        // window kernel: windows per block
-  int oc_b;                       // window kernel: oc columns per block
-  int ks;                         // window kernel: thread groups on K
+  int run;                        // windows per block (1: whole kernel)
+  int oc_b;                       // oc columns per block
+  int ks;                         // thread groups on K
 };
-
-static constexpr int kThreads = 256;
 
 // Border-clamped origin of window wi (im2win_conv.py::_window_origin).
 __device__ __forceinline__ void window_origin(const SdkGeom& g, int wi,
@@ -86,65 +95,7 @@ __device__ __forceinline__ size_t out_offset(const SdkGeom& g, int ci,
          + ox;
 }
 
-// ---------------------------------------------------------------------------
-// Whole kernel: x and out stay in device memory, read and written directly.
-// grid = (ar_c*ac_c*nw, ceil(b / b_chunk)); blockIdx.x is the flat TPU grid
-// step (ci, oi, wi), blockIdx.y a chunk of the batch.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-sdk_whole_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                 float* __restrict__ out, SdkGeom g) {
-  const int step = blockIdx.x;
-  const int wi = step % g.nw;
-  const int oi = (step / g.nw) % g.ac_c;
-  const int ci = step / (g.nw * g.ac_c);
-  int y0, x0;
-  window_origin(g, wi, &y0, &x0);
-  const int b0 = blockIdx.y * g.b_chunk;
-  const int nb = min(g.b_chunk, g.b - b0);
-  const int per_img = g.oc_t * g.py * g.px;
-  const size_t plane = (size_t)g.i_h * g.i_w;
-  const size_t w_tap = (size_t)g.ic_pad * g.oc_pad;   // one (dy, dx) slice
-
-  for (int e = threadIdx.x; e < nb * per_img; e += blockDim.x) {
-    const int qx = e % g.px;
-    const int qy = (e / g.px) % g.py;
-    const int o = (e / (g.px * g.py)) % g.oc_t;
-    const int bi = b0 + e / per_img;
-    const float* xb = x + ((size_t)bi * g.ic_pad + (size_t)ci * g.ic_t) * plane
-                      + (size_t)(y0 + qy * g.s) * g.i_w + (x0 + qx * g.s);
-    const float* wb = w + (size_t)ci * g.ic_t * g.oc_pad
-                      + (size_t)oi * g.oc_t + o;
-    float acc = 0.f;
-    for (int dy = 0; dy < g.k_h; ++dy) {
-      for (int dx = 0; dx < g.k_w; ++dx) {
-        const float* xp = xb + (size_t)dy * g.i_w + dx;
-        const float* wp = wb + (size_t)(dy * g.k_w + dx) * w_tap;
-        for (int c = 0; c < g.ic_t; ++c) {
-          acc = fmaf(xp[c * plane], wp[(size_t)c * g.oc_pad], acc);
-        }
-      }
-    }
-    out[out_offset(g, ci, bi, oi * g.oc_t + o, y0 / g.s + qy,
-                   x0 / g.s + qx)] = acc;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Window kernel: each block computes oc_b of the oc_t columns of one
-// (ci, oi) pass, for `run` consecutive windows and one chunk of b_chunk
-// images.  It stages its kernel block (k_h*k_w x ic_t x oc_b) in shared
-// memory once, and each window's patch, b_chunk images of
-// (pw_h, pw_w, ic_t) channel fastest, with cp.async; with run > 1 the copy
-// of window t+1 is in flight in a second slot while window t is computed
-// (the TPU kernel's two VMEM slots and DMA semaphores).  The product is
-// window_product.cuh's, its rows the (image, output position) pairs of
-// the window at stride s.  Output tiles are stored straight to device
-// memory.
-// grid = (ar_c*ac_c*parts, ceil(nw / run), ceil(b / b_chunk)) with
-// parts = ceil(oc_t / oc_b).
-// ---------------------------------------------------------------------------
-// Shared-memory layout of one window-kernel block, in floats.
+// Shared-memory layout of one block, in floats.
 struct WinLayout {
   int cp, pix, img;                   // staged channels, pixel stride, image
   long long slot, slots, ws, scratch;
@@ -169,7 +120,7 @@ __host__ __device__ inline WinLayout win_layout(const SdkGeom& g) {
   return l;
 }
 
-// Divisors of the window kernel's index arithmetic, built on the host.
+// Divisors of the block body's index arithmetic, built on the host.
 struct WinDivs {
   wp::FastDiv pw_w, pw_h, ic_t, oc_b, ob4, cp, per_img, px, pad;
 };
@@ -199,24 +150,30 @@ __device__ __forceinline__ void stage_patch(const SdkGeom& g,
   wp::cp_async_commit();
 }
 
-__global__ void __launch_bounds__(wp::kThreads)
-sdk_window_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                  float* __restrict__ out, SdkGeom g, WinDivs dv) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+// ---------------------------------------------------------------------------
+// The block body of both kernels: columns [part*oc_b, part*oc_b + oc_b) of
+// the oc_t columns of pass (ci, oi), for windows [w_begin, w_end) and the
+// images [b0, b0 + b_chunk).  It stages its kernel block (k_h*k_w x ic_t x
+// oc_b) in shared memory once, and each window's patch, b_chunk images of
+// (pw_h, pw_w, ic_t) channel fastest, with cp.async; with more than one
+// window the copy of window t+1 is in flight in a second slot while window
+// t is computed.  The product is window_product.cuh's; output tiles are
+// stored straight to device memory.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void window_block(const float* __restrict__ x,
+                                             const float* __restrict__ w,
+                                             float* __restrict__ out,
+                                             const SdkGeom& g,
+                                             const WinDivs& dv, float* smem,
+                                             int ci, int oi, int part,
+                                             int w_begin, int w_end,
+                                             int b0) {
   const wp::Split s = win_split(g);
   const WinLayout l = win_layout(g);
   float* ws = smem + l.slot * l.slots;
   float* scratch = ws + l.ws;
-  const int parts = (g.oc_t + g.oc_b - 1) / g.oc_b;
-  const int pass = blockIdx.x / parts;
-  const int ci = pass / g.ac_c;
-  const int oi = pass % g.ac_c;
-  const int o_lo = (blockIdx.x % parts) * g.oc_b;
+  const int o_lo = part * g.oc_b;
   const int o_hi = min(g.oc_t, o_lo + g.oc_b);
-  const int w_begin = blockIdx.y * g.run;
-  const int w_end = min(w_begin + g.run, g.nw);
-  const int b0 = blockIdx.z * g.b_chunk;
   const int nb = min(g.b_chunk, g.b - b0);
   const int per_img = g.py * g.px;
   const int rows = nb * per_img;
@@ -322,47 +279,101 @@ sdk_window_kernel(const float* __restrict__ x, const float* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
+// Whole kernel: one block per (TPU grid step, column part, image chunk).
+// grid = (ar_c*ac_c*nw, parts, ceil(b / b_chunk)) with parts =
+// ceil(oc_t / oc_b); blockIdx.x is the flat step (ci, oi, wi), so
+// blocks == steps x parts x chunks.  Up to 255 registers (one block an SM
+// by registers): at 128 the body spills, and a served launch has at most
+// one block an SM anyway.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(wp::kThreads, 1)
+sdk_whole_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                 float* __restrict__ out, SdkGeom g, WinDivs dv) {
+  extern __shared__ float4 smem4[];
+  const int step = blockIdx.x;
+  const int pass = step / g.nw, wi = step - pass * g.nw;
+  window_block(x, w, out, g, dv, reinterpret_cast<float*>(smem4),
+               pass / g.ac_c, pass % g.ac_c, blockIdx.y, wi, wi + 1,
+               blockIdx.z * g.b_chunk);
+}
+
+// ---------------------------------------------------------------------------
+// Window kernel: one block per (pass, column part, run of windows, image
+// chunk).  grid = (ar_c*ac_c*parts, ceil(nw / run), ceil(b / b_chunk)).
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(wp::kThreads)
+sdk_window_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                  float* __restrict__ out, SdkGeom g, WinDivs dv) {
+  extern __shared__ float4 smem4[];
+  const int parts = (g.oc_t + g.oc_b - 1) / g.oc_b;
+  const int pass = blockIdx.x / parts;
+  const int w_begin = blockIdx.y * g.run;
+  window_block(x, w, out, g, dv, reinterpret_cast<float*>(smem4),
+               pass / g.ac_c, pass % g.ac_c, blockIdx.x % parts, w_begin,
+               min(w_begin + g.run, g.nw), blockIdx.z * g.b_chunk);
+}
+
+// The shared memory of a block of layout g, in bytes, or -1 when
+// (b_chunk, run, oc_b, ks) do not make a block that fits 227 KB (or a
+// whole-kernel layout has a run).
+static int block_smem(const SdkGeom& g, bool whole) {
+  if (g.b_chunk < 1 || g.run < 1 || (whole && g.run != 1) || g.oc_b < 4 ||
+      g.oc_b % 4 || !wp::split_ok(win_split(g)))
+    return -1;
+  const long long smem = win_layout(g).total() * (long long)sizeof(float);
+  return smem > wp::kSmemLimit ? -1 : (int)smem;
+}
+
+static WinDivs make_divs(const SdkGeom& g) {
+  const int cp = wp::round4(g.ic_t);
+  return WinDivs{wp::FastDiv(g.pw_w), wp::FastDiv(g.pw_h),
+                 wp::FastDiv(g.ic_t), wp::FastDiv(g.oc_b),
+                 wp::FastDiv(g.oc_b / 4), wp::FastDiv(cp),
+                 wp::FastDiv(g.py * g.px), wp::FastDiv(g.px),
+                 wp::FastDiv(cp > g.ic_t ? cp - g.ic_t : 1)};
+}
+
+static cudaError_t allow_smem(const void* kernel, int smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem);
+}
+
+// ---------------------------------------------------------------------------
 // C entry points (loaded with ctypes).  Each launches on `stream` and
 // returns cudaGetLastError(): a refused launch never runs, and only this
-// return value reports it.
+// return value reports it.  Both return cudaErrorInvalidValue when
+// (b_chunk, run, oc_b, ks) do not make a block that fits 227 KB of shared
+// memory; the whole kernel's layout must have run == 1.
 // ---------------------------------------------------------------------------
 extern "C" int sdk_conv_whole(const float* x, const float* w, float* out,
-                              const SdkGeom* geom, void* stream) {
+                              const SdkGeom* geom, int* blocks,
+                              void* stream) {
   const SdkGeom g = *geom;
-  const dim3 grid(g.ar_c * g.ac_c * g.nw, (g.b + g.b_chunk - 1) / g.b_chunk);
-  sdk_whole_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(x, w, out,
-                                                                 g);
+  const int smem = block_smem(g, true);
+  if (smem < 0) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem((const void*)sdk_whole_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(g.ar_c * g.ac_c * g.nw, (g.oc_t + g.oc_b - 1) / g.oc_b,
+                  (g.b + g.b_chunk - 1) / g.b_chunk);
+  sdk_whole_kernel<<<grid, wp::kThreads, smem, (cudaStream_t)stream>>>(
+      x, w, out, g, make_divs(g));
+  *blocks = (int)(grid.x * grid.y * grid.z);
   return (int)cudaGetLastError();
 }
 
-// The window kernel's launch: cudaErrorInvalidValue when (b_chunk, run,
-// oc_b, ks) do not make a block that fits 227 KB of shared memory.
 extern "C" int sdk_conv_window(const float* x, const float* w, float* out,
                                const SdkGeom* geom, void* stream) {
   const SdkGeom g = *geom;
-  if (g.b_chunk < 1 || g.run < 1 || g.oc_b < 4 || g.oc_b % 4 ||
-      !wp::split_ok(win_split(g)))
-    return (int)cudaErrorInvalidValue;
-  const long long smem = win_layout(g).total() * (long long)sizeof(float);
-  if (smem > wp::kSmemLimit) return (int)cudaErrorInvalidValue;
-  const int smem_bytes = (int)smem;
-  if (smem_bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        sdk_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const int smem = block_smem(g, false);
+  if (smem < 0) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem((const void*)sdk_window_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid(g.ar_c * g.ac_c * ((g.oc_t + g.oc_b - 1) / g.oc_b),
                   (g.nw + g.run - 1) / g.run,
                   (g.b + g.b_chunk - 1) / g.b_chunk);
-  const WinLayout l = win_layout(g);
-  const WinDivs dv{wp::FastDiv(g.pw_w), wp::FastDiv(g.pw_h),
-                   wp::FastDiv(g.ic_t), wp::FastDiv(g.oc_b),
-                   wp::FastDiv(g.oc_b / 4), wp::FastDiv(l.cp),
-                   wp::FastDiv(g.py * g.px),
-                   wp::FastDiv(g.px),
-                   wp::FastDiv(l.cp > g.ic_t ? l.cp - g.ic_t : 1)};
-  sdk_window_kernel<<<grid, kThreads, smem_bytes, (cudaStream_t)stream>>>(
-      x, w, out, g, dv);
+  sdk_window_kernel<<<grid, wp::kThreads, smem, (cudaStream_t)stream>>>(
+      x, w, out, g, make_divs(g));
   return (int)cudaGetLastError();
 }

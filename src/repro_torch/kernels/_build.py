@@ -8,8 +8,8 @@ the flags, then loaded with
 import; an unchanged source found built is loaded as it is.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
 :func:`launch` calls an entry point and raises on the CUDA error it
-returns; :func:`cuda_operand` and :func:`ptr` prepare its tensor
-arguments.
+returns; :func:`operand_dtype`, :func:`cuda_operand` and :func:`ptr`
+check and prepare its tensor arguments.
 
     PYTHONPATH=src python -m repro_torch.kernels._build --ptxas-report \
         [source.cu ...]
@@ -125,15 +125,35 @@ def load(source: str) -> ctypes.CDLL:
     return lib
 
 
+#: The operand types of the kernel API: f32, or bf16 (summed in f32 and
+#: returned in bf16), as the JAX package's kernels take them.
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def operand_dtype(**operands: torch.Tensor) -> torch.dtype:
+    """The one dtype of a kernel call's operands, f32 or bf16; raises on
+    any other dtype and on operands of mixed dtypes."""
+    dtypes = {t.dtype for t in operands.values()}
+    if len(dtypes) != 1:
+        raise ValueError("operands of mixed dtypes: " + ", ".join(
+            f"{n} {t.dtype}" for n, t in operands.items()))
+    dtype = dtypes.pop()
+    if dtype not in KERNEL_DTYPES:
+        raise ValueError(f"{'/'.join(operands)} are {dtype}; the kernels "
+                         f"take f32 or bf16")
+    return dtype
+
+
 def cuda_operand(t: torch.Tensor, name: str) -> torch.Tensor:
-    """``t`` as the matmul and attention kernels take it: a CUDA f32
-    tensor with unit stride along its last dimension (a copy only when
-    that stride is not 1)."""
+    """``t`` as the matmul, attention and im2win kernels take it: a CUDA
+    f32 or bf16 tensor with unit stride along its last dimension (a copy
+    only when that stride is not 1)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} is on {t.device}, the kernel needs a "
                          f"CUDA tensor")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} is {t.dtype}, the kernel takes f32")
+    if t.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"{name} is {t.dtype}, the kernel takes f32 or "
+                         f"bf16")
     return t if t.stride(-1) == 1 else t.contiguous()
 
 

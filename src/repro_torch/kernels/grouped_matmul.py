@@ -20,21 +20,25 @@ from __future__ import annotations
 
 import torch
 
-from ._build import cuda_operand
+from ._build import cuda_operand, operand_dtype
 from .tetris_matmul import _library, launch_gemm
 
 
 def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The plain version: ``einsum("gmd,gdf->gmf")`` in f32."""
-    return torch.einsum("gmd,gdf->gmf", x.float(), w.float())
+    """The plain version: ``einsum("gmd,gdf->gmf")`` in f32, returned in
+    x's dtype."""
+    return torch.einsum("gmd,gdf->gmf", x.float(), w.float()).to(x.dtype)
 
 
 def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Launch the kernel (replaces ``_gmm_kernel``): x (G, M, D) @
-    w (G, D, F) -> (G, M, F) f32 on the card.  Counts its launches in
-    ``grouped_matmul_cuda.launches`` and the blocks they ran in
-    ``.blocks``."""
+    w (G, D, F) -> (G, M, F) on the card, in x's dtype (bf16 operands
+    are cast to f32 on the card for the f32 kernel, the result back to
+    bf16).  Counts its launches in ``grouped_matmul_cuda.launches`` and
+    the blocks they ran in ``.blocks``."""
     x, w = cuda_operand(x, "x"), cuda_operand(w, "w")
+    dtype = operand_dtype(x=x, w=w)
+    x, w = x.float(), w.float()
     (g, m, d), (g2, d2, f) = x.shape, w.shape
     if (g, d) != (g2, d2) or x.device != w.device:
         raise ValueError(f"x {tuple(x.shape)} on {x.device} and w "
@@ -46,7 +50,7 @@ def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         x.stride(1), w.stride(1), out.stride(1), x.stride(0), w.stride(0),
         out.stride(0))
     grouped_matmul_cuda.launches += 1
-    return out
+    return out.to(dtype)
 
 
 grouped_matmul_cuda.launches = 0
@@ -59,9 +63,10 @@ def reset_counts() -> None:
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (G, M, D) @ w (G, D, F) -> (G, M, F) f32, diagonal blocks only.
-    CUDA tensors launch the kernel; CPU tensors take
-    :func:`grouped_matmul_ref`."""
+    """x (G, M, D) @ w (G, D, F) -> (G, M, F), diagonal blocks only, f32
+    or bf16 (summed in f32) as x and w are.  CUDA tensors launch the
+    kernel; CPU tensors take :func:`grouped_matmul_ref`."""
+    operand_dtype(x=x, w=w)
     if x.device.type == "cuda":
         return grouped_matmul_cuda(x, w)
     if x.device.type == "cpu":

@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.tetris import factor_pairs_square_first
-from ._build import cuda_operand, launch, ptr
+from ._build import cuda_operand, launch, operand_dtype, ptr
 from .window_product import SMEM_LIMIT, k_groups, round4, smem_bytes
 
 SOURCE = "im2win_conv.cu"
@@ -86,10 +86,11 @@ def conv_window(x_shape, w_shape, window: Optional[Tuple[int, int]] = None
 
 
 def im2win_conv_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The plain version: ``F.conv2d`` on NCHW / OIHW views, f32."""
+    """The plain version: ``F.conv2d`` on NCHW / OIHW views in f32,
+    returned in x's dtype."""
     conv_window(x.shape, w.shape)
     y = F.conv2d(x.float().permute(0, 3, 1, 2), w.float().permute(3, 2, 0, 1))
-    return y.permute(0, 2, 3, 1)
+    return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
 class BlockTile(NamedTuple):
@@ -176,15 +177,17 @@ def im2win_conv_cuda(x: torch.Tensor, w: torch.Tensor, *,
                      ) -> torch.Tensor:
     """Launch the kernel (replaces ``_conv_kernel``): one cluster of
     :func:`cluster_split`'s size per grid step ``(B, ⌈o_h/th⌉,
-    ⌈o_w/tw⌉)``.  x (B, H, W, C), w (kh, kw, C, O), f32 on the card ->
-    (B, o_h, o_w, O) f32.  Every block loads the whole window patch
-    itself (device memory sees it once, the cluster's other blocks find it
-    in L2).  Raises when the card cannot place one cluster.  Counts its
+    ⌈o_w/tw⌉)``.  x (B, H, W, C), w (kh, kw, C, O) on the card ->
+    (B, o_h, o_w, O) in x's dtype (the kernel is f32: bf16 operands are
+    cast to f32 on the card, the result back to bf16).  Every block
+    loads the whole window patch itself (device memory sees it once, the
+    cluster's other blocks find it in L2).  Raises when the card cannot place one cluster.  Counts its
     launches in ``im2win_conv_cuda.launches``, grid steps in ``.steps``
     and the blocks the C entry launched (its ``gridDim.x``) in
     ``.blocks``."""
-    x = cuda_operand(x, "x").contiguous()
-    w = cuda_operand(w, "w").contiguous()
+    x, w = cuda_operand(x, "x"), cuda_operand(w, "w")
+    dtype = operand_dtype(x=x, w=w)
+    x, w = x.float().contiguous(), w.float().contiguous()
     if x.device != w.device:
         raise ValueError(f"x on {x.device}, w on {w.device}")
     args, steps, _ = _plan(tuple(x.shape), tuple(w.shape), window)
@@ -197,7 +200,7 @@ def im2win_conv_cuda(x: torch.Tensor, w: torch.Tensor, *,
     im2win_conv_cuda.launches += 1
     im2win_conv_cuda.steps += steps
     im2win_conv_cuda.blocks += blocks.value
-    return out
+    return out.to(dtype)
 
 
 im2win_conv_cuda.launches = 0
@@ -214,8 +217,10 @@ def reset_counts() -> None:
 def im2win_conv(x: torch.Tensor, w: torch.Tensor, *,
                 window: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """x (B, H, W, C) pre-padded; w (kh, kw, C, O); stride 1 VALID ->
-    (B, o_h, o_w, O) f32.  CUDA tensors launch the kernel; CPU tensors
-    take :func:`im2win_conv_plain`."""
+    (B, o_h, o_w, O), f32 or bf16 (summed in f32) as x and w are.  CUDA
+    tensors launch the kernel; CPU tensors take
+    :func:`im2win_conv_plain`."""
+    operand_dtype(x=x, w=w)
     if x.device.type == "cuda":
         return im2win_conv_cuda(x, w, window=window)
     if x.device.type == "cpu":

@@ -11,12 +11,16 @@ the ``(b, oc_t, py, px)`` output tile into its channel pass's slot of a
 leading ``ar_c`` axis that is summed afterwards (Fig 3's shift-and-add).
 
 Two hand-written CUDA kernels (``csrc/sdk_conv.cu``) carry it on the
-card: :func:`sdk_whole` reads the whole feature map from device memory,
-:func:`sdk_window` stages the tile's kernel block and one window patch
-at a time in shared memory and runs the register-tiled product of
-``csrc/window_product.cuh``; :func:`window_launch_dims` lays it out to
-fill the card, double-buffering a run of windows only past two waves of
-blocks.  ``block="auto"`` picks the window kernel when the whole-array
+card, both on one block body: a block stages the tile's kernel block
+(its share of the columns) and a window patch at a time in shared
+memory and runs the register-tiled product of
+``csrc/window_product.cuh``.  A block of :func:`sdk_whole` owns one
+window (one TPU grid step); a block of :func:`sdk_window` may walk a run
+of windows, double-buffering their patches.  :func:`whole_launch_dims`
+and :func:`window_launch_dims` lay them out to fill the card: column
+parts until a launch has about 132 blocks, and past two waves of blocks
+several images a block (whole) or runs of windows first (window).
+``block="auto"`` picks the window kernel when the whole-array
 working set exceeds the budget — the JAX package's rule, kept so both
 packages resolve the same ``block`` per layer.  Under the 8 MiB default
 no served mapping of cnn8, densenet40 or inception reaches the window
@@ -48,11 +52,9 @@ from .window_product import SMEM_LIMIT, k_groups, round4, smem_bytes
 DEFAULT_VMEM_BUDGET = 8 * 1024 * 1024
 _VMEM_ENV_VAR = "REPRO_SDK_VMEM_BUDGET"
 
-#: Output elements the whole kernel's block should cover at least (its
-#: thread count).
-_THREADS = 256
-#: Streaming multiprocessors of an H100: the window kernel's launch aims
-#: at this many blocks, and takes runs of windows only past two waves.
+#: Streaming multiprocessors of an H100: both kernels' launches aim at
+#: this many blocks; past two waves the window kernel takes runs of
+#: windows, the whole kernel (and then the window kernel) several images.
 _SMS = 132
 _TWO_WAVES = 2 * _SMS
 SOURCE = "sdk_conv.cu"
@@ -244,7 +246,8 @@ def _library() -> ctypes.CDLL:
     from . import _build
     lib = _build.load(SOURCE)
     ptrs = [ctypes.c_void_p] * 3 + [ctypes.POINTER(SdkGeom)]
-    lib.sdk_conv_whole.argtypes = ptrs + [ctypes.c_void_p]
+    lib.sdk_conv_whole.argtypes = ptrs + [ctypes.POINTER(ctypes.c_int),
+                                          ctypes.c_void_p]
     lib.sdk_conv_whole.restype = ctypes.c_int
     lib.sdk_conv_window.argtypes = ptrs + [ctypes.c_void_p]
     lib.sdk_conv_window.restype = ctypes.c_int
@@ -269,28 +272,21 @@ def _check_operands(xt: torch.Tensor, kt: torch.Tensor, g: TileGeom
                          f"do not match the tile's passes")
 
 
-def _c_geom(xt: torch.Tensor, kt: torch.Tensor, g: TileGeom, b_chunk: int,
-            run: int, oc_b: int = 4, ks: int = 1) -> SdkGeom:
+def _c_geom(xt: torch.Tensor, kt: torch.Tensor, g: TileGeom,
+            d: "WindowLaunch") -> SdkGeom:
     b, ic_pad, i_h, i_w = xt.shape
     return SdkGeom(b=b, ic_pad=ic_pad, i_h=i_h, i_w=i_w,
                    oc_pad=kt.shape[3], o_h=g.o_h, o_w=g.o_w, ar_c=g.ar_c,
                    ac_c=g.ac_c, ic_t=g.ic_t, oc_t=g.oc_t, k_h=g.k_h,
                    k_w=g.k_w, s=g.s, pw_h=g.pw_h, pw_w=g.pw_w, py=g.py,
                    px=g.px, step_y=g.step_y, step_x=g.step_x, nx=g.nx,
-                   nw=g.nw, lim_y=g.lim_y, lim_x=g.lim_x, b_chunk=b_chunk,
-                   run=run, oc_b=oc_b, ks=ks)
-
-
-def whole_launch_dims(b: int, g: TileGeom) -> Tuple[int, int]:
-    """(b_chunk, blocks) of the whole kernel: enough images per block to
-    give it a thread per output element, up to the batch."""
-    per_img = g.oc_t * g.py * g.px
-    b_chunk = max(1, min(b, _THREADS // per_img))
-    return b_chunk, g.steps * math.ceil(b / b_chunk)
+                   nw=g.nw, lim_y=g.lim_y, lim_x=g.lim_x, b_chunk=d.b_chunk,
+                   run=d.run, oc_b=d.oc_b, ks=d.ks)
 
 
 class WindowLaunch(NamedTuple):
-    """How :func:`sdk_window` lays out one (group, tile) launch."""
+    """How :func:`sdk_whole` or :func:`sdk_window` lays out one
+    (group, tile) launch."""
 
     b_chunk: int   # images per block
     run: int       # consecutive windows per block (> 1: double buffer)
@@ -298,6 +294,14 @@ class WindowLaunch(NamedTuple):
     ks: int        # thread groups splitting the K sum
     smem: int      # bytes of shared memory per block
     blocks: int    # blocks of the launch
+
+
+def whole_launch_dims(b: int, g: TileGeom) -> WindowLaunch:
+    """The whole kernel's layout: :func:`window_launch_dims` with a run of
+    one window, so a block owns one TPU grid step and one patch slot, and
+    past two waves it takes several images.  ``blocks`` is steps x column
+    parts x image chunks."""
+    return _launch_dims(b, g, runs=False)
 
 
 def window_launch_dims(b: int, g: TileGeom) -> WindowLaunch:
@@ -308,6 +312,10 @@ def window_launch_dims(b: int, g: TileGeom) -> WindowLaunch:
     double-buffered), then takes several images.  Its kernel block and
     patch slots must fit 227 KB: the columns are halved further until
     they do."""
+    return _launch_dims(b, g, runs=True)
+
+
+def _launch_dims(b: int, g: TileGeom, runs: bool) -> WindowLaunch:
     passes = g.ar_c * g.ac_c
     k_taps = g.k_h * g.k_w
     k_steps = k_taps * round4(g.ic_t) // 4
@@ -321,7 +329,7 @@ def window_launch_dims(b: int, g: TileGeom) -> WindowLaunch:
     while True:
         blocks_per_image = passes * parts_of(oc_b)
         run = 1
-        if blocks_per_image * g.nw * b > _TWO_WAVES:
+        if runs and blocks_per_image * g.nw * b > _TWO_WAVES:
             run = min(g.nw, math.ceil(blocks_per_image * g.nw * b
                                       / _TWO_WAVES))
         per_chunk = blocks_per_image * math.ceil(g.nw / run)
@@ -355,17 +363,20 @@ def _output(g: TileGeom, b: int, oc_pad: int, device) -> torch.Tensor:
 def sdk_whole(xt: torch.Tensor, kt: torch.Tensor, g: TileGeom
               ) -> torch.Tensor:
     """Launch the whole kernel (replaces ``_sdk_kernel``) on one
-    (group, tile); returns (ar_c, b, oc_pad, o_h, o_w).  Counts its
-    launches in ``sdk_whole.launches`` and the grid steps (ci, oi, wi)
-    they ran in ``sdk_whole.steps``."""
+    (group, tile) with :func:`whole_launch_dims`' layout; returns (ar_c,
+    b, oc_pad, o_h, o_w).  Counts its launches in ``sdk_whole.launches``,
+    the grid steps (ci, oi, wi) they ran in ``sdk_whole.steps`` and the
+    blocks the C entry reports it launched in ``sdk_whole.blocks``."""
     _check_operands(xt, kt, g)
     b = xt.shape[0]
     out = _output(g, b, kt.shape[3], xt.device)
-    b_chunk, _ = whole_launch_dims(b, g)
+    blocks = ctypes.c_int(0)
     launch(_library().sdk_conv_whole, xt.device, ptr(xt), ptr(kt), ptr(out),
-           ctypes.byref(_c_geom(xt, kt, g, b_chunk, 1)))
+           ctypes.byref(_c_geom(xt, kt, g, whole_launch_dims(b, g))),
+           ctypes.byref(blocks))
     sdk_whole.launches += 1
     sdk_whole.steps += g.steps
+    sdk_whole.blocks += blocks.value
     return out
 
 
@@ -378,9 +389,8 @@ def sdk_window(xt: torch.Tensor, kt: torch.Tensor, g: TileGeom
     _check_operands(xt, kt, g)
     b = xt.shape[0]
     out = _output(g, b, kt.shape[3], xt.device)
-    d = window_launch_dims(b, g)
     launch(_library().sdk_conv_window, xt.device, ptr(xt), ptr(kt), ptr(out),
-           ctypes.byref(_c_geom(xt, kt, g, d.b_chunk, d.run, d.oc_b, d.ks)))
+           ctypes.byref(_c_geom(xt, kt, g, window_launch_dims(b, g))))
     sdk_window.launches += 1
     sdk_window.steps += g.steps
     return out
@@ -388,12 +398,15 @@ def sdk_window(xt: torch.Tensor, kt: torch.Tensor, g: TileGeom
 
 sdk_whole.launches = sdk_window.launches = 0
 sdk_whole.steps = sdk_window.steps = 0
+sdk_whole.blocks = 0
 
 
 def reset_counts() -> None:
-    """Zero both kernels' launch and step counts."""
+    """Zero both kernels' launch and step counts and the whole kernel's
+    block count."""
     for fn in (sdk_whole, sdk_window):
         fn.launches = fn.steps = 0
+    sdk_whole.blocks = 0
 
 
 def _tile_cuda(xt: torch.Tensor, kt: torch.Tensor, g: TileGeom,

@@ -30,7 +30,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from ._build import cuda_operand, launch, ptr
+from ._build import cuda_operand, launch, operand_dtype, ptr
 
 SOURCE = "matmul.cu"
 
@@ -94,8 +94,8 @@ def launch_gemm(entry, x: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
 
 
 def matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The plain version: ``x @ w`` in f32."""
-    return torch.matmul(x.float(), w.float())
+    """The plain version: ``x @ w`` in f32, returned in x's dtype."""
+    return torch.matmul(x.float(), w.float()).to(x.dtype)
 
 
 @functools.cache
@@ -121,10 +121,13 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def tetris_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Launch the kernel (replaces ``_mm_kernel``): x (M, K) @ w (K, N)
-    -> (M, N) f32 on the card.  Counts its launches in
-    ``tetris_matmul_cuda.launches`` and the blocks they ran in
-    ``.blocks``."""
+    -> (M, N) on the card, in x's dtype.  The kernel is f32: bf16
+    operands are cast to f32 on the card first and the result back to
+    bf16.  Counts its launches in ``tetris_matmul_cuda.launches`` and the
+    blocks they ran in ``.blocks``."""
     x, w = cuda_operand(x, "x"), cuda_operand(w, "w")
+    dtype = operand_dtype(x=x, w=w)
+    x, w = x.float(), w.float()
     (m, k), (k2, n) = x.shape, w.shape
     if k != k2 or x.device != w.device:
         raise ValueError(f"x {tuple(x.shape)} on {x.device} and w "
@@ -134,7 +137,7 @@ def tetris_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         _library().tetris_matmul_f32, x, w, out, 1, m, n, m, n, k,
         x.stride(0), w.stride(0), out.stride(0))
     tetris_matmul_cuda.launches += 1
-    return out
+    return out.to(dtype)
 
 
 tetris_matmul_cuda.launches = 0
@@ -147,8 +150,10 @@ def reset_counts() -> None:
 
 
 def tetris_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (M, K) @ w (K, N) -> (M, N) f32.  CUDA tensors launch the
-    kernel; CPU tensors take :func:`matmul_ref`."""
+    """x (M, K) @ w (K, N) -> (M, N), f32 or bf16 (summed in f32) as x
+    and w are.  CUDA tensors launch the kernel; CPU tensors take
+    :func:`matmul_ref`."""
+    operand_dtype(x=x, w=w)
     if x.device.type == "cuda":
         return tetris_matmul_cuda(x, w)
     if x.device.type == "cpu":

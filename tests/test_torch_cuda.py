@@ -1,10 +1,12 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
-the sdk kernels (the window kernel also with runs of windows and at
-stride 2), tetris_matmul and grouped_matmul (both instances of their
-GEMM body, the blocks launched held to the launch rule),
-flash_attention, the last also through the attention stage at a ragged
-length, ssd_chunk (also through the SSD mixer) and im2win_conv (also
-through the ops surface, with each of its kernels).  Marked
+the sdk kernels (the whole kernel's blocks held to its launch rule, the
+window kernel also with runs of windows and at stride 2), tetris_matmul
+and grouped_matmul (both instances of their GEMM body, the blocks
+launched held to the launch rule), flash_attention (both block heights,
+both staging instances, f32 and bf16), the last also through the
+attention stage at a ragged length, ssd_chunk (also through the SSD
+mixer) and im2win_conv (also through the ops surface, with each of its
+kernels, in f32 and bf16).  Marked
 ``cuda``: without a CUDA device each test skips.  On the card:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
@@ -17,6 +19,9 @@ torch = pytest.importorskip("torch")
 
 #: f32, the same products summed in another order, relative to max|y|
 RTOL = 1e-5
+#: a bf16 result against the plain version in f32 on the same values: one
+#: bf16 rounding of y plus the f32 summation order, relative to max|y|
+BF16_RTOL = 2.0 ** -8 + RTOL
 
 
 @pytest.fixture
@@ -66,6 +71,10 @@ def test_kernel_matches_plain(cuda, name, batch, block):
     torch.cuda.synchronize()
     assert fn.launches == len(m.tiles) * m.group
     assert fn.steps == sk.sdk_conv_cycles(m)
+    if block == "whole":            # the blocks the C entry launched
+        assert sk.sdk_whole.blocks == m.group * sum(
+            sk.whole_launch_dims(batch, sk.tile_geom(m, t)).blocks
+            for t in m.tiles)
     scale = float(want.abs().max())
     assert float((y - want).abs().max()) <= RTOL * scale
 
@@ -103,10 +112,10 @@ def _rand(cuda, *shape, seed=0):
     return torch.as_tensor(rng.randn(*shape).astype(np.float32), device=cuda)
 
 
-def _close(y, want):
+def _close(y, want, rtol=RTOL):
     scale = float(want.abs().max())
     assert y.shape == want.shape
-    assert float((y - want).abs().max()) <= RTOL * scale
+    assert float((y - want).abs().max()) <= rtol * scale
 
 
 @pytest.mark.cuda
@@ -206,11 +215,21 @@ def test_grouped_matmul_weight_view_in_place(cuda, gmdf, vector):
     _close(y, gm.grouped_matmul_ref(x, w))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("bh,sq,sk,d,causal,q_offset", [
+#: (BH, Sq, Sk, D, causal, q_offset): the served shapes, ragged lengths
+#: (136, whisper's 1500), queries after their keys, and D 16 to 128 (D 100
+#: and 63 run on the next instance up, 63 with 4-byte staging)
+FLASH_CASES = [
     (8, 512, 512, 64, True, 0), (8, 1024, 1024, 64, False, 0),
     (4, 100, 100, 16, True, 0), (4, 128, 256, 32, True, 128),
-    (2, 256, 256, 128, False, 0), (3, 64, 64, 40, True, 0)])
+    (2, 256, 256, 128, False, 0), (3, 64, 64, 40, True, 0),
+    (4, 136, 136, 64, True, 0), (4, 1500, 1500, 64, False, 0),
+    (2, 72, 1500, 64, True, 1428), (2, 300, 300, 100, True, 0),
+    (2, 200, 330, 128, True, 130), (2, 257, 257, 32, False, 0),
+    (2, 130, 130, 63, True, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,sq,sk,d,causal,q_offset", FLASH_CASES)
 def test_flash_attention_matches_plain(cuda, bh, sq, sk, d, causal,
                                        q_offset):
     from repro_torch.kernels import flash_attention as fa
@@ -222,6 +241,48 @@ def test_flash_attention_matches_plain(cuda, bh, sq, sk, d, causal,
     assert fa.flash_attention_cuda.launches == 1
     _close(y, fa.flash_attention_ref(q, k, v, causal=causal,
                                      q_offset=q_offset))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [64, 128])
+@pytest.mark.parametrize("bh,sq,sk,d,causal,q_offset", [
+    (8, 512, 512, 64, True, 0), (4, 1500, 1500, 64, False, 0),
+    (2, 200, 330, 32, True, 130), (2, 130, 130, 63, True, 0)])
+def test_flash_attention_both_block_heights(cuda, bh, sq, sk, d, causal,
+                                            q_offset, rows):
+    """64- and 128-row blocks (the launch rule's two choices), on an
+    aligned and on a misaligned base (the 4-byte instance at D 64)."""
+    from repro_torch.kernels import flash_attention as fa
+    q = _rand(cuda, bh * sq * d + 1, seed=8)[1:].view(bh, sq, d)
+    k, v = _rand(cuda, bh, sk, d, seed=9), _rand(cuda, bh, sk, d, seed=10)
+    assert q.is_contiguous() and not fa.vector_staging(q)
+    for qq in (q, q.clone()):
+        y = fa.flash_attention_cuda(qq, k, v, causal=causal,
+                                    q_offset=q_offset, rows=rows)
+        torch.cuda.synchronize()
+        _close(y, fa.flash_attention_ref(q, k, v, causal=causal,
+                                         q_offset=q_offset))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,sq,sk,d,causal,q_offset", [
+    (8, 512, 512, 64, True, 0), (4, 1500, 1500, 64, False, 0),
+    (2, 72, 1500, 64, True, 1428), (2, 300, 300, 100, True, 0),
+    (2, 256, 256, 128, False, 0), (2, 257, 257, 32, True, 0)])
+def test_flash_attention_bf16(cuda, bh, sq, sk, d, causal, q_offset):
+    """bf16 in and out, f32 inside: within one bf16 rounding of the plain
+    version in f32 on the same bf16 values; D 100 takes the element-wise
+    staging, the others 16-byte loads."""
+    from repro_torch.kernels import flash_attention as fa
+    q = _rand(cuda, bh, sq, d, seed=11).bfloat16()
+    k = _rand(cuda, bh, sk, d, seed=12).bfloat16()
+    v = _rand(cuda, bh, sk, d, seed=13).bfloat16()
+    y = fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16
+    _close(y.float(), fa.flash_attention_ref(
+        q.float(), k.float(), v.float(), causal=causal, q_offset=q_offset),
+        BF16_RTOL)
 
 
 @pytest.mark.cuda
@@ -383,3 +444,33 @@ def test_ops_surface_launches_each_kernel(cuda):
     assert (tm.tetris_matmul_cuda.launches, gm.grouped_matmul_cuda.launches,
             fa.flash_attention_cuda.launches,
             iw.im2win_conv_cuda.launches) == (1, 1, 1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["matmul", "gmm", "attention", "conv2d"])
+def test_ops_bf16_matches_plain(cuda, op):
+    """The four wrappers on bf16 operands: one launch of their kernel, a
+    bf16 result within one bf16 rounding of the plain version in f32 on
+    the same values."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import im2win_conv as iw
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import tetris_matmul as tm
+    args, plain, counter = {
+        "matmul": (((130, 72), (72, 40)), ref.matmul_ref,
+                   tm.tetris_matmul_cuda),
+        "gmm": (((3, 50, 24), (3, 24, 30)), ref.grouped_matmul_ref,
+                gm.grouped_matmul_cuda),
+        "attention": (((4, 100, 32),) * 3, ref.flash_attention_ref,
+                      fa.flash_attention_cuda),
+        "conv2d": (((2, 9, 9, 16), (3, 3, 16, 8)), ref.conv2d_ref,
+                   iw.im2win_conv_cuda)}[op]
+    xs = [_rand(cuda, *shape, seed=22 + i).bfloat16()
+          for i, shape in enumerate(args)]
+    for mod in (fa, gm, iw, tm):
+        mod.reset_counts()
+    y = getattr(ops, op)(*xs)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and counter.launches == 1
+    _close(y.float(), plain(*(x.float() for x in xs)), BF16_RTOL)

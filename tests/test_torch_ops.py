@@ -2,9 +2,10 @@
 the JAX package's on the CPU: the im2win window rule and grid size, the
 convolution (plain route) against ``ref.conv2d_ref`` on the JAX kernel
 test's shapes and the paper's 14 layers, and matmul, gmm and attention
-against the JAX ``ops`` (Pallas in interpret mode).  The JAX im2win
-kernel itself does not trace on this JAX (ROADMAP.md queue 3), so the
-convolution is held to the JAX oracle."""
+against the JAX ``ops`` (Pallas in interpret mode), in f32 and in bf16
+(the dtype contract: bf16 in, f32 sums, bf16 out; other or mixed dtypes
+raise).  The JAX im2win kernel itself does not trace on this JAX
+(ROADMAP.md queue 3), so the convolution is held to the JAX oracle."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -177,3 +178,59 @@ def test_cluster_split_fills_the_card_on_the_paper_layers(batch):
     assert clusters["Incep-3b"] == clusters["CNN8-7"] == \
         im2win_conv.MAX_CLUSTER
     assert sum(v == im2win_conv.MAX_CLUSTER for v in clusters.values()) >= 9
+
+
+def _bf16_case(op, rng):
+    """(numpy f32 operands, extra kwargs, contraction depth K) of one op;
+    the operands are rounded to bf16 on both sides."""
+    if op == "matmul":
+        return (rng.randn(100, 60), rng.randn(60, 48)), {}, 60
+    if op == "gmm":
+        return (rng.randn(3, 50, 40), rng.randn(3, 40, 30)), {}, 40
+    if op == "attention":
+        return tuple(rng.randn(2, 128, 64) for _ in range(3)), {
+            "causal": True}, 64
+    return (rng.randn(2, 9, 9, 16), rng.randn(3, 3, 16, 8) * 0.1), {}, \
+        3 * 3 * 16
+
+
+def _jax_bf16(op, args, kw):
+    """The reference on bf16 operands: the JAX ``ops`` kernel in interpret
+    mode, or ``ref.conv2d_ref`` for the convolution."""
+    a = [jnp.asarray(x.astype(np.float32), jnp.bfloat16) for x in args]
+    fn = j_ref.conv2d_ref if op == "conv2d" else getattr(j_ops, op)
+    out = fn(*a, **kw)
+    assert out.dtype == jnp.bfloat16
+    return np.asarray(out, np.float32)
+
+
+@pytest.mark.parametrize("op", ["matmul", "gmm", "attention", "conv2d"])
+def test_bf16_keeps_the_reference_dtype_contract(op):
+    """bf16 operands return bf16 and agree with the reference within its
+    own bf16 tolerances (tests/test_kernels.py): atol 0.2 sqrt(K), rtol
+    1e-2 for the products (the convolution's K is kh*kw*C), 5e-2 / 5e-2
+    for attention."""
+    args, kw, k = _bf16_case(op, np.random.RandomState(7))
+    want = _jax_bf16(op, args, kw)
+    got = getattr(ops, op)(*(t(x.astype(np.float32)).to(torch.bfloat16)
+                             for x in args), **kw)
+    assert got.dtype == torch.bfloat16
+    atol, rtol = (5e-2, 5e-2) if op == "attention" else (0.2 * np.sqrt(k),
+                                                         1e-2)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("op", ["matmul", "gmm", "attention", "conv2d"])
+@pytest.mark.parametrize("dtypes", ["float16", "mixed"])
+def test_other_or_mixed_dtypes_are_refused(op, dtypes):
+    """float16 operands, or f32 beside bf16, raise rather than return a
+    result in some other dtype."""
+    args, kw, _ = _bf16_case(op, np.random.RandomState(8))
+    ts = [t(x.astype(np.float32)) for x in args]
+    if dtypes == "float16":
+        ts = [x.half() for x in ts]
+    else:
+        ts[-1] = ts[-1].to(torch.bfloat16)
+    with pytest.raises(ValueError, match="dtype|float16"):
+        getattr(ops, op)(*ts, **kw)

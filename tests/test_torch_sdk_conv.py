@@ -123,6 +123,30 @@ def _assert_window_launch(b, g):
     return d
 
 
+def _assert_whole_launch(b, g):
+    """The whole kernel's grid under whole_launch_dims, decoded as
+    csrc/sdk_conv.cu decodes it (x the flat step (ci, oi, wi), y the
+    column part, z the image chunk), computes every (step, image, output
+    column) exactly once within 227 KB, in steps x parts x chunks
+    blocks."""
+    d = tk.whole_launch_dims(b, g)
+    assert d.run == 1 and d.smem <= tk.SMEM_LIMIT
+    assert 1 <= d.b_chunk <= b
+    assert d.oc_b % 4 == 0 and 4 <= d.oc_b <= -(-g.oc_t // 4) * 4
+    parts, chunks = -(-g.oc_t // d.oc_b), -(-b // d.b_chunk)
+    assert d.blocks == g.steps * parts * chunks
+    seen = np.zeros((g.ar_c, g.ac_c, g.nw, b, g.oc_t), dtype=int)
+    for step in range(g.steps):
+        pass_, wi = divmod(step, g.nw)
+        ci, oi = divmod(pass_, g.ac_c)
+        for part in range(parts):
+            for chunk in range(chunks):
+                seen[ci, oi, wi, chunk * d.b_chunk:(chunk + 1) * d.b_chunk,
+                     part * d.oc_b:(part + 1) * d.oc_b] += 1
+    assert (seen == 1).all()
+    return d
+
+
 def test_launch_dims_fit_shared_memory():
     """The window kernel's kernel block and patch slots fit a block's
     shared memory even where the whole batch does not (a DenseNet40
@@ -139,8 +163,7 @@ def test_launch_dims_fit_shared_memory():
             d = _assert_window_launch(b, g)
             if b == 256:
                 assert d.b_chunk < b      # the whole batch does not fit
-            wb, wblocks = tk.whole_launch_dims(b, g)
-            assert wblocks == g.steps * -(-b // wb)
+            _assert_whole_launch(b, g)
 
 
 def _served(net_name):
@@ -165,6 +188,41 @@ def test_window_launch_fills_the_card_on_served_tiles(net_name):
             assert d.blocks >= min(pairs, 66)
             if d.run > 1:
                 assert pairs * -(-g.oc_t // d.oc_b) > 264
+
+
+@pytest.mark.parametrize("batch", [1, 8, 128])
+@pytest.mark.parametrize("net_name", ["cnn8", "densenet40", "inception"])
+def test_whole_launch_covers_and_fits_served_tiles(net_name, batch):
+    """On every tile of the served mappings the whole kernel's launch
+    covers the tile once within 227 KB; on cnn8's five sdk layers at
+    batch 8 (the served path) every launch has at least 64 blocks."""
+    from repro_torch.exec.plan import _auto_executor
+    for m in _served(net_name).layers:
+        for tile in m.tiles:
+            d = _assert_whole_launch(batch, tk.tile_geom(m, tile))
+            if (net_name, batch) == ("cnn8", 8) and \
+                    _auto_executor(m, backend="cuda") == "sdk":
+                assert d.blocks >= 64, m.layer.name
+
+
+def test_whole_launch_dims_at_cnn8_batch_8():
+    """The served cnn8's five sdk layers at batch 8: the whole kernel's
+    column parts and blocks, one image a block (no layer reaches two
+    waves); the window kernel's layout on the same tiles is the same
+    (its runs start past two waves)."""
+    from repro_torch.exec.plan import _auto_executor
+    got = {}
+    for m in _served("cnn8").layers:
+        if _auto_executor(m, backend="cuda") != "sdk":
+            continue
+        for tile in m.tiles:
+            g = tk.tile_geom(m, tile)
+            d = tk.whole_launch_dims(8, g)
+            assert d.b_chunk == 1
+            assert d == tk.window_launch_dims(8, g)
+            got[m.layer.name] = got.get(m.layer.name, 0) + d.blocks
+    assert sorted(got) == ["CNN8-3", "CNN8-4", "CNN8-5", "CNN8-6", "CNN8-7"]
+    assert all(n >= 64 for n in got.values()), got
 
 
 @pytest.mark.parametrize("net_name", ["cnn8", "densenet40", "inception"])
