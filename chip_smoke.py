@@ -60,7 +60,8 @@ Phases, each of which raises on failure (exit code != 0):
     ``ssd_chunk_plain`` at mamba2-130m's prefill shape (B 4, S 2048, H 24,
     P 64, N 128, L 256), at a ragged prompt (S 2000, padded to 2048), at
     S 100 < chunk and at the JAX kernel test's shape (G == H), in f32 and
-    bf16, and through the SSD mixer against ``plain=True``;
+    bf16 (the bf16 blocks launched held to ``ssd_launch_dims``), and
+    through the SSD mixer against ``plain=True``;
     ``ops.conv2d`` (im2win_conv) on the 6 cnn8 and 8 Inception 5x5 layers
     at batch 8 with every count at 0 just before and read just after,
     grid steps held to ``n_cycles`` and the blocks the launches report to
@@ -69,7 +70,8 @@ Phases, each of which raises on failure (exit code != 0):
 11. mamba2-130m path — ``launch.serve.generate`` at full width (24
     blocks, weights drawn on the card from the seed) with batch 4, prompt
     2048, gen 32, every count at 0 just before and read just after:
-    ``ssd_chunk`` launches == 24 per prefill and none from decode; prefill
+    ``ssd_chunk`` launches == 24 per prefill (its blocks 24 times
+    ``ssd_launch_dims``') and none from decode; prefill
     and decode rates, each the mean of several calls after the warm-up
     ``generate``; the prefill's last-position logits against the same
     prefill through the plain versions; one prefill under
@@ -80,7 +82,11 @@ Phases, each of which raises on failure (exit code != 0):
     returning its operands' dtype; a bf16 result within one bf16 rounding
     of the plain version in f32, with the device time of the casts of the
     three wrappers whose kernel is f32;
-13. ssd_chunk and im2win_conv times, as in 9;
+13. ssd_chunk and im2win_conv times, as in 9; ssd_chunk's bf16 launch at
+    the rule's head slice, at the kernel's other widths and the f32
+    instance in interleaved rounds, its bound on the bf16 tensor cores
+    with C . B^T counted once per group, and the former bound (f32 rate,
+    C . B^T once per head) beside it;
 14. a ``{"kernels": [...]}`` line: per kernel its launches, error, time
     at its path's shapes, the plain version's time, the least time the
     card could take (its bound) and the library call's time;
@@ -112,8 +118,10 @@ KERNEL_RTOL = 1e-5
 #: a whole forward vs the F.conv2d oracle: six chained layers, each
 #: summed in another order than cuDNN's, relative to max|y|.
 FORWARD_RTOL = 1e-4
-#: H100 SXM peaks (NVIDIA data sheet): f32 on the CUDA cores, HBM3.
+#: H100 SXM peaks (NVIDIA data sheet): f32 on the CUDA cores, bf16 dense
+#: on the tensor cores, HBM3.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 WHOLE_SITE = "src/repro/kernels/im2win_conv.py:380"
 WINDOW_SITE = "src/repro/kernels/im2win_conv.py:354"
@@ -300,10 +308,11 @@ def randn(rng, shape, device, scale=1.0):
                            device=device)
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple:
-    """(ms, "bytes" | "operations"): f32 FLOPs at the f32 peak or bytes
-    at the memory rate, whichever takes longer."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+def bound_ms(flops: float, nbytes: float,
+             rate: float = PEAK_F32_FLOPS) -> tuple:
+    """(ms, "bytes" | "operations"): FLOPs at ``rate`` (the f32 peak
+    unless given) or bytes at the memory rate, whichever takes longer."""
+    t_ops, t_bytes = flops / rate, nbytes / PEAK_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -793,8 +802,6 @@ def ssd_kernel_checks(dev) -> float:
     cases += [((2, 128, 4, 16, 4, 8), 128), ((2, 128, 4, 16, 4, 8), 32)]
     for shape, chunk in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            if shape[1] == 128 and dtype == torch.bfloat16:
-                continue
             x, dt, a_log, bm, cm = ssd_inputs(rng, *shape, dev, dtype)
             if shape[1] % chunk:            # pad as ssd_chunked does
                 pad = chunk - shape[1] % chunk
@@ -809,9 +816,20 @@ def ssd_kernel_checks(dev) -> float:
                 *(a.float() for a in (x, dt)), a_log, bm.float(), cm.float(),
                 chunk=chunk)
             bf = dtype == torch.bfloat16
+            layout = ""
+            if bf:            # the bf16 blocks launched == the rule's
+                lay = sc.ssd_launch_dims(*x.shape, *bm.shape[2:], chunk,
+                                         sc.sm_count(dev))
+                layout = (f" heads/block={lay.heads} state_level="
+                          f"{lay.state_level} blocks={sc.ssd_chunk_cuda.blocks}"
+                          f" (rule {lay.blocks})")
+                if sc.ssd_chunk_cuda.blocks != lay.blocks:
+                    raise AssertionError(f"ssd_chunk launched "
+                                         f"{sc.ssd_chunk_cuda.blocks} blocks,"
+                                         f" ssd_launch_dims {lay.blocks}")
             label = (f"ssd_chunk {'bf16' if bf else 'f32'} (B,S,H,P,G,N)="
                      f"{tuple(x.shape[:3]) + shape[3:]} from S={shape[1]} "
-                     f"L={chunk} launches={launched}")
+                     f"L={chunk} launches={launched}{layout}")
             worst = max(worst,
                         check(label + " y", y, want_y,
                               BF16_RTOL if bf else KERNEL_RTOL),
@@ -939,6 +957,17 @@ def mamba_phase(dev, card: str) -> int:
             v for k, v in launches.items() if k != "ssd_chunk"):
         raise AssertionError(f"generate launched {launches}, not "
                              f"ssd_chunk x {cfg.n_layers} (one prefill) only")
+    m = cfg.ssm
+    lay = sc.ssd_launch_dims(batch, prompt, m.n_heads, m.head_dim,
+                             m.n_groups, m.d_state, min(m.chunk, prompt),
+                             sc.sm_count(dev))
+    print(f"[mamba] ssd_chunk blocks launched {sc.ssd_chunk_cuda.blocks} == "
+          f"{cfg.n_layers} x ssd_launch_dims {lay.blocks} ({lay.heads} heads "
+          f"a y block, state_level {lay.state_level}, {lay.smem} B of shared"
+          f" memory): {sc.ssd_chunk_cuda.blocks == cfg.n_layers * lay.blocks}")
+    if sc.ssd_chunk_cuda.blocks != cfg.n_layers * lay.blocks:
+        raise AssertionError("the prefill's ssd_chunk launches ran other "
+                             "blocks than ssd_launch_dims gives")
     if not (out.shape == (batch, prompt + gen)
             and torch.equal(out[:, :prompt], prompts)
             and int(out.min()) >= 0 and int(out.max()) < cfg.vocab):
@@ -1141,11 +1170,30 @@ def ops_bf16_times(label: str, name: str, fn, args, card: str) -> None:
           f"{t['f32']:.5f} ms{casts} on {card}")
 
 
+def ssd_work(b, s, h, p, g, n, chunk) -> tuple:
+    """(FLOPs, FLOPs with C . B^T once per head, bytes) of one ssd_chunk
+    call: per (batch * chunk) the causal pairs L (L + 1) / 2 times 2 N for
+    C . B^T per group and 2 P for y per head, and 2 L P N per head for the
+    state; x, dt, B, C (bf16), a_log read once, y (bf16) and the states
+    (f32) written once."""
+    bc, pairs = b * (s // chunk), chunk * (chunk + 1) / 2
+    head = bc * h * (pairs * 2 * p + 2 * chunk * p * n)
+    nbytes = (2 * (2 * b * s * h * p + b * s * h + 2 * b * s * g * n)
+              + 4 * h + 4 * bc * h * p * n)
+    return (bc * g * pairs * 2 * n + head, bc * h * pairs * 2 * n + head,
+            nbytes)
+
+
 def time_new_kernels(conv_data, dev, card: str) -> dict:
     """Phase 13: ssd_chunk at the path's shape (one block's prefill, bf16
     as served) and im2win_conv over the 14 layers, summed: device time
     (stream held), per-call time, the plain version's, the library
-    call's (F.conv2d; none computes ssd_chunk) and the bound."""
+    call's (F.conv2d; none computes ssd_chunk) and the bound.  For
+    ssd_chunk the bf16 kernel at the rule's head slice and at each other
+    width the kernel has, and the f32 instance (the first port's CUDA-core
+    body) on f32 copies, in interleaved rounds; the bound on the bf16
+    tensor cores with C . B^T once per group, and the former bound (f32
+    rate, C . B^T once per head) beside it."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1159,24 +1207,48 @@ def time_new_kernels(conv_data, dev, card: str) -> dict:
                          min(m.chunk, s))
     x, dt, a_log, bm, cm = ssd_inputs(rng, b, s, h, p, g, n, dev,
                                       torch.bfloat16)
-    nc = s // chunk
-    pairs = b * nc * h
-    flops = pairs * (chunk * (chunk + 1) / 2 * 2 * (n + p)
-                     + 2 * chunk * p * n)
-    nbytes = (2 * (x.numel() * 2 + dt.numel() + bm.numel() + cm.numel())
-              + 4 * a_log.numel() + 4 * b * nc * h * p * n)
-    run = (lambda: sc.ssd_chunk_cuda(x, dt, a_log, bm, cm, chunk=chunk))
-    t_ssd = {"ms": device_ms(run, iters=20), "call_ms": call_ms(run, 20),
+    f32 = [t.float() for t in (x, dt)] + [a_log] + [t.float()
+                                                     for t in (bm, cm)]
+    flops, flops_per_head, nbytes = ssd_work(b, s, h, p, g, n, chunk)
+    lay = sc.ssd_launch_dims(b, s, h, p, g, n, chunk, sc.sm_count(dev))
+    runs = {"bf16": lambda: sc.ssd_chunk_cuda(x, dt, a_log, bm, cm,
+                                              chunk=chunk)}
+    for w in sc.SLICE_HEADS:
+        try:
+            sc.ssd_launch_dims(b, s, h, p, g, n, chunk, sc.sm_count(dev),
+                               slice_heads=w)
+        except ValueError:
+            continue
+        if w != lay.heads:
+            runs[f"bf16 {w} heads a block"] = (
+                lambda w=w: sc.ssd_chunk_cuda(x, dt, a_log, bm, cm,
+                                              chunk=chunk, slice_heads=w))
+    runs["f32 instance"] = lambda: sc.ssd_chunk_cuda(*f32, chunk=chunk)
+    t = interleaved_ms(runs, 20, ROUNDS)
+    run = runs["bf16"]
+    t_ssd = {"ms": t["bf16"], "call_ms": call_ms(run, 20),
              "plain_ms": call_ms(lambda: sc.ssd_chunk_plain(
                  x, dt, a_log, bm, cm, chunk=chunk), 3, warmup=1),
              "library_ms": None}
-    t_ssd["bound_ms"], t_ssd["bound_by"] = bound_ms(flops, nbytes)
+    t_ssd["bound_ms"], t_ssd["bound_by"] = bound_ms(flops, nbytes,
+                                                    PEAK_BF16_FLOPS)
+    t_ssd["bound_f32_ms"], by_f32 = bound_ms(flops_per_head, nbytes)
     print(f"[time] ssd_chunk bf16 (B,S,H,P,G,N,L)=({b},{s},{h},{p},{g},{n},"
-          f"{chunk}):"
-          f" device {t_ssd['ms']:.5f} ms, per call {t_ssd['call_ms']:.5f} ms, "
-          f"plain {t_ssd['plain_ms']:.5f} ms, bound {t_ssd['bound_ms']:.6f} ms"
-          f" ({t_ssd['bound_by']}); {flops / t_ssd['ms'] / 1e9:.3f} TFLOP/s "
-          f"useful on {card}")
+          f"{chunk}), {lay.heads} heads a y block, {lay.blocks} blocks: "
+          f"device {t_ssd['ms']:.5f} ms (median of {ROUNDS} interleaved "
+          f"rounds), per call {t_ssd['call_ms']:.5f} ms, plain "
+          f"{t_ssd['plain_ms']:.5f} ms; {flops / 1e9:.4f} GFLOP with "
+          f"C.B^T once per group, {flops / t_ssd['ms'] / 1e9:.3f} TFLOP/s; "
+          f"bound {t_ssd['bound_ms']:.6f} ms ({t_ssd['bound_by']}, bf16 "
+          f"tensor cores at {PEAK_BF16_FLOPS / 1e12:g} TFLOP/s, "
+          f"{nbytes / 1e6:.3f} MB at {PEAK_BYTES_PER_S / 1e12:g} TB/s); "
+          f"former bound {t_ssd['bound_f32_ms']:.6f} ms ({by_f32}, "
+          f"{flops_per_head / 1e9:.4f} GFLOP with C.B^T once per head at "
+          f"the f32 rate) on {card}")
+    for name, ms in t.items():
+        print(f"[time] ssd_chunk {name}: device {ms:.5f} ms "
+              f"({ms / t['bf16']:.3f}x the bf16 launch) on {card}")
+    t_ssd["f32_instance_ms"] = t["f32 instance"]
 
     keys = ("ms", "call_ms", "plain_ms", "library_ms", "flops", "bytes")
     t_conv = dict.fromkeys(keys, 0.0)
@@ -1237,6 +1309,10 @@ def ssd_conv_phases(dev, card: str) -> list:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shapes": shape, "timing": timing})
+    # ssd_chunk: the former bound (f32 rate, C.B^T once per head) and the
+    # f32 instance's time beside the bf16 launch's
+    rows[0].update({k: times["ssd_chunk"][k] for k in
+                    ("bound_f32_ms", "f32_instance_ms")})
     # the path's grid steps (== n_cycles), blocks (== steps x cluster) and
     # each layer's cluster, in layer order
     rows[-1].update(conv_grid)

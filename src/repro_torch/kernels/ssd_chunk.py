@@ -9,31 +9,58 @@ cumulative sum of ``dt * A`` over the chunk (``A = -exp(a_log)``)::
 
 the masked-decay product and the chunk-final state that the host-side
 inter-chunk scan consumes (``models/ssm.py``).  On a TPU ``_ssd_kernel``
-holds a whole chunk's (L, L, H) decay tensor in VMEM; here the CUDA
-kernel of ``csrc/ssd_chunk.cu`` gives a block one (chunk, head) and a
-64-row query tile and loops over key tiles, with one more block per
-(chunk, head) for the state.
+holds a whole chunk's (L, L, H) decay tensor in VMEM.  Here
+``csrc/ssd_chunk.cu`` has two instances:
+
+* bf16 (the one that serves) runs every product on the tensor cores.
+  C . B^T does not depend on the head, so a y block owns (chunk, group,
+  128-row query tile, a slice of the group's heads) and computes each
+  16 x 16 score tile once for the slice; the f32 operand of the y and
+  state products (the decayed scores times dt, and x dt times the decay)
+  is split into bf16 ``hi + lo`` (within 2^-18; ``hi + mid + lo``,
+  within 2^-27, for the states), the other operand (x, B) is the exact
+  bf16 input.  State blocks, one per (chunk, head), write the states in
+  the same launch.  :func:`ssd_launch_dims` picks the slice width and
+  the launch order (heaviest blocks first); :func:`vector_staging` picks
+  16-byte or element-wise staging.
+* f32 keeps the CUDA-core body of the first port: one block per (chunk,
+  head, query tile) and one more per (chunk, head) for the state.
 
 B and C come as (B, S, G, N) and head ``h`` reads group ``h // (H // G)``
 (``G == H`` is the TPU kernel's pre-repeated signature).
 :func:`ssd_chunk` launches the kernel for CUDA tensors (counted in
-``ssd_chunk_cuda.launches``) and takes :func:`ssd_chunk_plain` only for
-CPU tensors.
+``ssd_chunk_cuda.launches``, its blocks in ``ssd_chunk_cuda.blocks``) and
+takes :func:`ssd_chunk_plain` only for CPU tensors.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+import heapq
+import math
+from typing import NamedTuple, Tuple
 
 import torch
 
 from ._build import launch, ptr
+from .tetris_matmul import sm_count
+from .window_product import SMEM_LIMIT
 
 SOURCE = "ssd_chunk.cu"
 #: largest head dim the kernel takes (its y accumulators)
 MAX_HEAD_DIM = 128
 _DTYPES = (torch.float32, torch.bfloat16)
+#: the bf16 instance: keys of a key tile (and p rows of a state pass),
+#: query rows of a y block (eight warps of 16), bf16 a staged row is
+#: padded by, state columns of one state pass, slots of a state block's
+#: ring
+TILE, QUERY_ROWS, PAD, STATE_COLS, STATE_SLOTS = 64, 128, 8, 128, 2
+#: its instances: n8 tiles of y a warp holds per head (the first >=
+#: round16(P) / 8), and heads a y block may take, at most
+#: MAX_ACC_TILES / tiles of them (the y accumulators)
+ACC_TILES = (2, 4, 8, 16)
+SLICE_HEADS = (1, 2, 4)
+MAX_ACC_TILES = 16
 
 
 def _check_shapes(x, dt, a_log, b, c, chunk: int) -> None:
@@ -87,6 +114,143 @@ def ssd_chunk_plain(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     return y.reshape(bsz, s, h, p).to(x.dtype), states
 
 
+def _round16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def acc_tiles(p: int) -> int:
+    """The instance's n8 tiles of y a warp holds per head at head dim
+    ``p``."""
+    return next(k for k in ACC_TILES if _round16(p) // 8 <= k)
+
+
+def ssd_smem_bytes(heads: int, chunk: int, p: int, n: int) -> int:
+    """Shared memory of a bf16 block, the larger of its two roles (mirrors
+    ``smem_bytes`` in the source).  A y block: two f32 arrays per head
+    over the chunk padded to whole query tiles, the C tile (128 rows), a
+    ring of two (B tile, ``heads`` x tiles).  A state block: two f32
+    arrays, a ring of two (an x tile of <= 64 columns, a B tile of <=
+    128)."""
+    lp = math.ceil(chunk / QUERY_ROWS) * QUERY_ROWS
+    np_, pp = _round16(n) + PAD, _round16(p) + PAD
+    y = 8 * heads * lp + 2 * QUERY_ROWS * np_ + 4 * TILE * (np_ + heads * pp)
+    xw = min(_round16(p), TILE) + PAD
+    bw = min(_round16(n), STATE_COLS) + PAD
+    return max(y, 8 * lp + 2 * STATE_SLOTS * TILE * (xw + bw))
+
+
+class SsdLaunch(NamedTuple):
+    heads: int        # heads a y block applies its scores to
+    slices: int       # head slices of a group
+    state_level: int  # query-tile levels launched before the state blocks
+    blocks: int       # y blocks + state blocks
+    smem: int         # bytes of shared memory a block
+
+
+def block_work(chunk: int, p: int, n: int, qt: int, heads: int) -> int:
+    """Tensor-core multiply-adds of a y block of query tile ``qt`` with
+    ``heads`` heads (``heads`` 0: of a state block), padding included.
+    Each warp of a y block owns 16 query rows and, per key tile, runs the
+    16-key steps that hold a key <= its last row: per step the scores
+    (16 x 16 x round16(N)) once and each head's hi and lo products (2 x
+    16 x 16 x round16(P)).  A state block runs the hi, mid and lo
+    products over every key tile (3 x 64 x round16(P) x round16(N)
+    each)."""
+    np_, pp = _round16(n), _round16(p)
+    if heads == 0:
+        return math.ceil(chunk / TILE) * 3 * TILE * pp * np_
+    q0 = qt * QUERY_ROWS
+    end = min(q0 + QUERY_ROWS, chunk)
+    steps = sum(min(4, (r0 + 15 - kt * TILE) // 16 + 1)
+                for r0 in range(q0, end, 16)
+                for kt in range((end - 1) // TILE + 1)
+                if r0 + 15 - kt * TILE >= 0)
+    return steps * 16 * 16 * (np_ + 2 * heads * pp)
+
+
+def launch_works(batch: int, seq: int, heads: int, head_dim: int,
+                 groups: int, d_state: int, chunk: int, slice_heads: int,
+                 state_level: int) -> list:
+    """The work (:func:`block_work`) of every block of a bf16 launch, in
+    the order the kernel numbers them: the query tiles last to first,
+    within one (batch * chunk, group, head slice), and the state blocks
+    (one per (batch * chunk, head)) after ``state_level`` query tiles."""
+    rep, nc = heads // groups, seq // chunk
+    n_qt = math.ceil(chunk / QUERY_ROWS)
+    state = [block_work(chunk, head_dim, d_state, 0, 0)] * (batch * nc
+                                                            * heads)
+    sizes = [min(slice_heads, rep - s) for s in range(0, rep, slice_heads)]
+    works = []
+    for level, qt in enumerate(reversed(range(n_qt))):
+        if level == state_level:
+            works += state
+        works += [block_work(chunk, head_dim, d_state, qt, hs)
+                  for hs in sizes] * (batch * nc * groups)
+    return works + (state if state_level == n_qt else [])
+
+
+@functools.lru_cache(maxsize=256)
+def ssd_launch_dims(batch: int, seq: int, heads: int, head_dim: int,
+                    groups: int, d_state: int, chunk: int, sms: int, *,
+                    slice_heads: int = 0) -> SsdLaunch:
+    """The bf16 launch: the heads a y block takes and the launch order.
+
+    Per (batch * chunk, group) the y blocks of one query tile share their
+    scores across a slice of the group's heads: a wider slice computes
+    C . B^T fewer times but makes fewer blocks.  Blocks start heaviest
+    first: the query tiles last to first, and the state blocks (one per
+    (batch * chunk, head)) after the query tiles whose full-slice blocks
+    have at least their work.  Of the widths the kernel has
+    (:data:`SLICE_HEADS`, at most ``MAX_ACC_TILES / acc_tiles(P)``, at
+    most the group's heads, within shared memory) the rule takes the one
+    that gives the busiest of ``sms`` SMs the least work when each block
+    in launch order goes to the SM with the least work so far; a tie
+    goes to the wider slice.
+    ``slice_heads`` forces a width (for measuring them against each
+    other).  Cached: the wrapper asks at every call, and scheduling some
+    1,500 blocks takes about a millisecond of host time."""
+    if seq % chunk or heads % groups:
+        raise ValueError(f"S {seq} % chunk {chunk} or H {heads} % G "
+                         f"{groups} != 0")
+    rep, n_qt = heads // groups, math.ceil(chunk / QUERY_ROWS)
+    widths = [w for w in SLICE_HEADS
+              if w * acc_tiles(head_dim) <= MAX_ACC_TILES
+              and (w <= rep or w == 1)
+              and ssd_smem_bytes(w, chunk, head_dim, d_state) <= SMEM_LIMIT]
+    if slice_heads:
+        if slice_heads not in widths:
+            raise ValueError(f"{slice_heads} heads a block: the kernel "
+                             f"takes {widths} at P {head_dim}, N {d_state}")
+        widths = [slice_heads]
+    if not widths:
+        raise ValueError(f"no bf16 layout fits chunk {chunk}, P "
+                         f"{head_dim}, N {d_state} in shared memory")
+    state = block_work(chunk, head_dim, d_state, 0, 0)
+    best = None
+    for w in widths:
+        level = sum(block_work(chunk, head_dim, d_state, qt, w) >= state
+                    for qt in range(n_qt))
+        works = launch_works(batch, seq, heads, head_dim, groups, d_state,
+                             chunk, w, level)
+        loads = [0] * min(sms, len(works))
+        for work in works:
+            heapq.heapreplace(loads, loads[0] + work)
+        lay = SsdLaunch(w, math.ceil(rep / w), level, len(works),
+                        ssd_smem_bytes(w, chunk, head_dim, d_state))
+        if best is None or max(loads) <= best[0]:
+            best = (max(loads), lay)
+    return best[1]
+
+
+def vector_staging(*operands: torch.Tensor) -> bool:
+    """Whether the bf16 kernel may stage with 16-byte copies: every
+    operand's base is 16-byte aligned, its strides but the last and its
+    rows (N or P values) multiples of 8 bf16."""
+    return all(t.data_ptr() % 16 == 0 and t.shape[-1] % 8 == 0
+               and all(s % 8 == 0 for s in t.stride()[:-1])
+               for t in operands)
+
+
 class SsdArgs(ctypes.Structure):
     """One launch's sizes and strides; mirrors ``struct SsdArgs`` in
     ``csrc/ssd_chunk.cu`` field for field."""
@@ -104,8 +268,9 @@ def _library() -> ctypes.CDLL:
     from . import _build
     lib = _build.load(SOURCE)
     vp = ctypes.c_void_p
-    lib.ssd_chunk_fwd.argtypes = [vp] * 7 + [ctypes.POINTER(SsdArgs),
-                                             ctypes.c_int, vp]
+    i32 = ctypes.c_int
+    lib.ssd_chunk_fwd.argtypes = [vp] * 7 + [
+        ctypes.POINTER(SsdArgs), i32, i32, i32, i32, ctypes.POINTER(i32), vp]
     lib.ssd_chunk_fwd.restype = ctypes.c_int
     return lib
 
@@ -122,12 +287,14 @@ def _operand(t: torch.Tensor, name: str, dtype: torch.dtype) -> torch.Tensor:
 
 
 def ssd_chunk_cuda(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
-                   b: torch.Tensor, c: torch.Tensor, *, chunk: int = 128
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   b: torch.Tensor, c: torch.Tensor, *, chunk: int = 128,
+                   slice_heads: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel (replaces ``_ssd_kernel``) on x (B,S,H,P), dt
     (B,S,H), b/c (B,S,G,N), all f32 or all bf16, and a_log (H,).  Views
-    with a unit last stride are read in place.  Counts its launches in
-    ``ssd_chunk_cuda.launches``."""
+    with a unit last stride are read in place.  bf16 takes
+    :func:`ssd_launch_dims`' layout (``slice_heads`` forces its width).
+    Counts its launches in ``ssd_chunk_cuda.launches`` and the blocks the
+    C entry reports in ``ssd_chunk_cuda.blocks``."""
     if x.dtype not in _DTYPES:
         raise ValueError(f"x is {x.dtype}, the kernel takes {_DTYPES}")
     x, dt, b, c = (_operand(t, n, x.dtype) for t, n in
@@ -146,18 +313,27 @@ def ssd_chunk_cuda(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     args = SsdArgs(bsz, s, h, p, g, n, chunk,
                    *x.stride()[:3], *dt.stride()[:2], *b.stride()[:3],
                    *c.stride()[:3])
+    bf16 = x.dtype == torch.bfloat16
+    lay = (ssd_launch_dims(bsz, s, h, p, g, n, chunk, sm_count(x.device),
+                           slice_heads=slice_heads) if bf16 else None)
+    blocks = ctypes.c_int(0)
     launch(_library().ssd_chunk_fwd, x.device, ptr(x), ptr(dt), ptr(a_log),
            ptr(b), ptr(c), ptr(y), ptr(states), ctypes.byref(args),
-           int(x.dtype == torch.bfloat16))
+           int(bf16), lay.heads if bf16 else 0,
+           lay.state_level if bf16 else 0,
+           int(bf16 and vector_staging(x, b, c)), ctypes.byref(blocks))
     ssd_chunk_cuda.launches += 1
+    ssd_chunk_cuda.blocks += blocks.value
     return y, states
 
 
 ssd_chunk_cuda.launches = 0
+ssd_chunk_cuda.blocks = 0
 
 
 def reset_counts() -> None:
     ssd_chunk_cuda.launches = 0
+    ssd_chunk_cuda.blocks = 0
 
 
 def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,

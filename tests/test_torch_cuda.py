@@ -4,8 +4,10 @@ window kernel also with runs of windows and at stride 2), tetris_matmul
 and grouped_matmul (both instances of their GEMM body, the blocks
 launched held to the launch rule), flash_attention (both block heights,
 both staging instances, f32 and bf16), the last also through the
-attention stage at a ragged length, ssd_chunk (also through the SSD
-mixer) and im2win_conv (also through the ops surface, with each of its
+attention stage at a ragged length, ssd_chunk (f32, and bf16 on the
+tensor cores at every head-slice width and both staging instances, the
+blocks held to the launch rule; also through the SSD mixer) and
+im2win_conv (also through the ops surface, with each of its
 kernels, in f32 and bf16).  Marked
 ``cuda``: without a CUDA device each test skips.  On the card:
 
@@ -328,11 +330,16 @@ def _ssd_inputs(cuda, b, s, h, p, g, n, dtype=torch.float32, seed=12):
             dev(rng.randn(b, s, g, n) * 0.3), dev(rng.randn(b, s, g, n) * 0.3))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape,chunk", [
+#: (B, S, H, P, G, N), L: the JAX test's shape (G == H) at two chunks,
+#: L = 100 and 48 off the 64-row tile, P 40, N 8, 24 and 256, G < H
+SSD_SHAPES = [
     ((2, 128, 4, 16, 4, 8), 128), ((2, 128, 4, 16, 4, 8), 32),
     ((1, 512, 4, 64, 1, 128), 256), ((2, 100, 3, 32, 1, 16), 100),
-    ((1, 256, 4, 128, 2, 256), 128), ((2, 96, 6, 40, 3, 24), 48)])
+    ((1, 256, 4, 128, 2, 256), 128), ((2, 96, 6, 40, 3, 24), 48)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,chunk", SSD_SHAPES)
 def test_ssd_chunk_matches_plain(cuda, shape, chunk):
     """f32: y and the states within RTOL of their max; G < H read in
     place; L = 100 is no multiple of the 64-row tile."""
@@ -345,6 +352,66 @@ def test_ssd_chunk_matches_plain(cuda, shape, chunk):
     want_y, want_s = sc.ssd_chunk_plain(*args, chunk=chunk)
     _close(y, want_y)
     _close(st, want_s)
+
+
+def _ssd_bf16_check(args, chunk, slice_heads=0):
+    """The bf16 kernel on ``args`` against the plain version in f32 on the
+    same values: y within one bf16 rounding of max|y|, the states (f32)
+    within RTOL of max|S|; one launch of the rule's blocks."""
+    from repro_torch.kernels import ssd_chunk as sc
+    x, dt, a_log, b, c = args
+    want_y, want_s = sc.ssd_chunk_plain(
+        *(a.float() for a in (x, dt)), a_log, b.float(), c.float(),
+        chunk=chunk)
+    sc.reset_counts()
+    y, st = sc.ssd_chunk_cuda(*args, chunk=chunk, slice_heads=slice_heads)
+    torch.cuda.synchronize()
+    lay = sc.ssd_launch_dims(x.shape[0], x.shape[1], x.shape[2], x.shape[3],
+                             b.shape[2], b.shape[3], chunk,
+                             torch.cuda.get_device_properties(
+                                 x.device).multi_processor_count,
+                             slice_heads=slice_heads)
+    assert sc.ssd_chunk_cuda.launches == 1
+    assert sc.ssd_chunk_cuda.blocks == lay.blocks
+    assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
+    _close(y, want_y, BF16_RTOL)
+    _close(st, want_s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,chunk", SSD_SHAPES)
+def test_ssd_chunk_bf16_matches_plain(cuda, shape, chunk):
+    """The bf16 instance (tensor cores) at every shape of the f32 test,
+    with the rule's head slice and with every slice width the kernel has
+    there."""
+    from repro_torch.kernels import ssd_chunk as sc
+    args = _ssd_inputs(cuda, *shape, torch.bfloat16)
+    b, s, h, p, g, n = shape
+    _ssd_bf16_check(args, chunk)
+    for w in sc.SLICE_HEADS:
+        try:
+            sc.ssd_launch_dims(b, s, h, p, g, n, chunk, 132, slice_heads=w)
+        except ValueError:
+            continue                 # no instance of that width here
+        _ssd_bf16_check(args, chunk, w)
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_bf16_element_staging(cuda):
+    """Views whose rows are not 16-byte aligned (one bf16 into a buffer)
+    take the element-wise staging, read in place."""
+    from repro_torch.kernels import ssd_chunk as sc
+    b, s, h, p, g, n = 2, 256, 4, 64, 2, 128
+    x, dt, a_log, bm, cm = _ssd_inputs(cuda, b, s, h, p, g, n,
+                                       torch.bfloat16)
+
+    def shifted(t):
+        buf = torch.zeros(t.numel() + 1, dtype=t.dtype, device=cuda)
+        buf[1:] = t.reshape(-1)
+        return buf[1:].view(t.shape)
+    args = (shifted(x), dt, a_log, shifted(bm), shifted(cm))
+    assert not sc.vector_staging(args[0], args[3], args[4])
+    _ssd_bf16_check(args, 128)
 
 
 @pytest.mark.cuda

@@ -1,9 +1,14 @@
 """The port's SSD pieces against the JAX package's, on the CPU: the
 ``ssd_chunk`` kernel's plain version against the Pallas kernel in
-interpret mode and the ``ref`` oracle, the chunked mixer (ragged S,
-groups, an initial state), the chunked form against the decode
-recurrence, and the depthwise causal conv.  Inputs are numpy draws from
-a seed, fed to both packages."""
+interpret mode and the ``ref`` oracle, the bf16 kernel's arithmetic (the
+``hi + lo`` split) emulated at one mamba2-130m chunk against both, its
+launch rule, the chunked mixer (ragged S, groups, an initial state), the
+chunked form against the decode recurrence, and the depthwise causal
+conv.  Inputs are numpy draws from a seed, fed to both packages."""
+import math
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +28,16 @@ from repro_torch.models import ssm                              # noqa: E402
 #: f32 both sides, the same terms summed in another order: relative to
 #: max|y| (and max|S| for the states)
 RTOL = 1e-5
+#: a bf16 y against an f32 reference on the same values: one bf16
+#: rounding (2**-8 of the value) plus the f32 summation order
+BF16_RTOL = 2.0 ** -8 + RTOL
+#: mamba2-130m's mixer: (H, P, G, N), chunk
+MAMBA = (24, 64, 1, 128), 256
+#: (B, S, H, P, G, N), L of the card tests (tests/test_torch_cuda.py)
+EDGE_SHAPES = [
+    ((2, 128, 4, 16, 4, 8), 128), ((2, 128, 4, 16, 4, 8), 32),
+    ((1, 512, 4, 64, 1, 128), 256), ((2, 100, 3, 32, 1, 16), 100),
+    ((1, 256, 4, 128, 2, 256), 128), ((2, 96, 6, 40, 3, 24), 48)]
 
 
 def _inputs(rng, b, s, h, p, g, n):
@@ -154,3 +169,192 @@ def test_causal_conv1d_matches_jax(with_state):
     y, n = ssm.causal_conv1d(t(x), t(w), None if st is None else t(st))
     assert_close(y, np.asarray(y_j), RTOL)
     assert_close(n, np.asarray(n_j), 0.0)
+
+
+def _bf16(a):
+    """numpy f32 -> the same values rounded to bf16, as f32 numpy."""
+    return t(a).to(torch.bfloat16).float().numpy()
+
+
+def _split(v):
+    """f32 -> (hi, lo) bf16 values (as f32): hi = bf16(v), lo = bf16(v -
+    hi), the kernel's split of its f32 operand."""
+    hi = v.to(torch.bfloat16).float()
+    return hi, (v - hi).to(torch.bfloat16).float()
+
+
+def _split3(v):
+    """f32 -> (hi, mid, lo) bf16 values (as f32), the kernel's split of
+    the state product's f32 operand: hi + mid + lo within 2**-27."""
+    hi, mid = _split(v)
+    return hi, mid, (v - hi - mid).to(torch.bfloat16).float()
+
+
+def _emulate_bf16_kernel(x, dt, a_log, b, c, chunk, state_terms=3):
+    """The bf16 kernel's arithmetic, written out in f32 torch: C . B^T
+    from the bf16 inputs (exact products, f32 sums) once per group; w =
+    C.B^T exp(cs_i - cs_j) dt_j in f32, masked before the exponential,
+    split into bf16 hi + lo and multiplied by x in bf16 with f32 sums;
+    the state's x dt exp(cs_end - cs_j) split into ``state_terms`` bf16
+    terms (the kernel's three, or two) against the exact B.  Returns (y
+    before and after its bf16 rounding, states)."""
+    bsz, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    nc, rep = s // chunk, h // g
+    xr = x.reshape(bsz, nc, chunk, h, p)
+    dtr = dt.reshape(bsz, nc, chunk, h)
+    br = b.reshape(bsz, nc, chunk, g, n)
+    cr = c.reshape(bsz, nc, chunk, g, n)
+    cs = torch.cumsum(dtr * -torch.exp(a_log), 2).movedim(-1, 2)
+    cb = torch.einsum("bnigs,bnjgs->bngij", cr, br)          # per group
+    cb = cb.repeat_interleave(rep, dim=2)                     # (B,nc,H,L,L)
+    seg = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones(chunk, chunk, dtype=torch.bool).tril()
+    w = torch.where(mask, cb * torch.exp(torch.where(mask, seg, 0.0))
+                    * dtr.movedim(-1, 2)[..., None, :], 0.0)
+    hi, lo = _split(w)
+    y = (torch.einsum("bnhij,bnjhp->bnihp", hi, xr)
+         + torch.einsum("bnhij,bnjhp->bnihp", lo, xr)).reshape(x.shape)
+    scale = dtr * torch.exp(cs.movedim(2, -1)[:, :, -1:] - cs.movedim(2, -1))
+    v = xr * scale[..., None]
+    terms = _split3(v) if state_terms == 3 else _split(v)
+    bh = br.repeat_interleave(rep, dim=3)
+    st = sum(torch.einsum("bnjhp,bnjhs->bnhps", term, bh) for term in terms)
+    return y, y.to(torch.bfloat16), st
+
+
+@pytest.mark.parametrize("state_terms", [2, 3])
+def test_bf16_split_arithmetic_at_a_mamba_chunk(state_terms):
+    """One mamba2-130m chunk (B 1, S 256, H 24, P 64, G 1, N 128) in bf16:
+    the kernel's split arithmetic against the JAX kernel in interpret
+    mode (B and C pre-repeated over heads) and ssd_chunk_plain, both f32
+    on the same bf16 values.  y within one bf16 rounding of max|y| (and
+    within RTOL before that rounding: the split's 2**-18 stays below the
+    f32 gate), the states within RTOL of max|S| with the state operand
+    split in two (hi + lo) and in three (the kernel's)."""
+    (h, p, g, n), chunk = MAMBA
+    x, dt, a_log, b, c = _inputs(np.random.RandomState(7), 1, chunk, h, p,
+                                 g, n)
+    x, dt, b, c = (_bf16(a) for a in (x, dt, b, c))
+    y_raw, y_bf, st = _emulate_bf16_kernel(
+        *(t(a) for a in (x, dt, a_log, b, c)), chunk, state_terms)
+    rep = [np.repeat(a, h // g, axis=2) for a in (b, c)]
+    y_j, s_j = j_ssd_chunk(*(jnp.asarray(a) for a in (x, dt, a_log, *rep)),
+                           chunk=chunk, interpret=True)
+    y_p, s_p = sc.ssd_chunk_plain(*(t(a) for a in (x, dt, a_log, b, c)),
+                                  chunk=chunk)
+    for want_y, want_s in ((np.asarray(y_j), np.asarray(s_j)),
+                           (y_p.numpy(), s_p.numpy())):
+        assert_close(y_bf.float(), want_y, BF16_RTOL)
+        assert_close(y_raw, want_y, RTOL)
+        assert_close(st, want_s, RTOL)
+
+
+#: the SMs of an H100 SXM, for the launch rule
+SMS = 132
+
+
+@pytest.mark.parametrize("shape,chunk", EDGE_SHAPES + [
+    ((4, 2048) + MAMBA[0][:2] + MAMBA[0][2:], MAMBA[1])])
+def test_ssd_launch_dims_cover_every_head_once(shape, chunk):
+    """Every width the rule may take: the slices cover each group's
+    heads once, the blocks are (batch * chunk) x (G x slices x query
+    tiles + H), one work per block in launch order, and the layout fits
+    in shared memory; the rule's own choice is one of them."""
+    bsz, s, h, p, g, n = shape
+    rep, n_qt = h // g, math.ceil(chunk / sc.QUERY_ROWS)
+    chosen = sc.ssd_launch_dims(bsz, s, h, p, g, n, chunk, SMS)
+    taken = []
+    for w in sc.SLICE_HEADS:
+        try:
+            lay = sc.ssd_launch_dims(bsz, s, h, p, g, n, chunk, SMS,
+                                     slice_heads=w)
+        except ValueError:
+            continue
+        taken.append(lay)
+        sizes = [min(w, rep - k) for k in range(0, rep, w)]
+        assert lay.heads == w and lay.slices == len(sizes)
+        assert sum(sizes) == rep and min(sizes) >= 1
+        assert w * sc.acc_tiles(p) <= sc.MAX_ACC_TILES
+        assert lay.smem == sc.ssd_smem_bytes(w, chunk, p, n) <= 227 * 1024
+        assert lay.blocks == bsz * (s // chunk) * (g * lay.slices * n_qt + h)
+        assert len(sc.launch_works(bsz, s, h, p, g, n, chunk, w,
+                                   lay.state_level)) == lay.blocks
+    assert chosen in taken and taken
+
+
+@pytest.mark.parametrize("shape,chunk", EDGE_SHAPES + [
+    ((4, 2048) + MAMBA[0][:2] + MAMBA[0][2:], MAMBA[1])])
+def test_ssd_launch_order_is_heavy_first(shape, chunk):
+    """Query tiles start last to first and the state blocks sit between
+    the levels of heavier and of lighter y blocks."""
+    bsz, s, h, p, g, n = shape
+    lay = sc.ssd_launch_dims(bsz, s, h, p, g, n, chunk, SMS)
+    works = sc.launch_works(bsz, s, h, p, g, n, chunk, lay.heads,
+                            lay.state_level)
+    state = sc.block_work(chunk, p, n, 0, 0)
+    n_state = bsz * (s // chunk) * h
+    first = lay.state_level * (lay.blocks - n_state) // math.ceil(
+        chunk / sc.QUERY_ROWS)
+    assert works[first:first + n_state] == [state] * n_state
+    y = works[:first] + works[first + n_state:]
+    per_level = len(y) // math.ceil(chunk / sc.QUERY_ROWS)
+    tops = [max(y[k:k + per_level]) for k in range(0, len(y), per_level)]
+    assert tops == sorted(tops, reverse=True)
+    assert all(top >= state for top in tops[:lay.state_level])
+    assert all(top < state for top in tops[lay.state_level:])
+
+
+def test_ssd_launch_dims_at_mamba_and_at_g_equal_h():
+    """mamba2-130m's prefill (B 4, S 2048, L 256: 32 chunks, 2 query
+    tiles, 24 heads in one group: the scores shared by 2 heads, the
+    widest slice whose y accumulators fit at P 64) and the JAX test's
+    G == H shape (one head a group: one head a block)."""
+    (h, p, g, n), chunk = MAMBA
+    lay = sc.ssd_launch_dims(4, 2048, h, p, g, n, chunk, SMS)
+    assert (lay.heads, lay.slices) == (2, 12)
+    assert lay.blocks == 32 * (12 * 2 + h)
+    for chunk in (128, 32):
+        lay = sc.ssd_launch_dims(2, 128, 4, 16, 4, 8, chunk, SMS)
+        assert (lay.heads, lay.slices) == (1, 1)
+        assert lay.blocks == 2 * (128 // chunk) * (4 * math.ceil(
+            chunk / sc.QUERY_ROWS) + 4)
+
+
+def test_ssd_launch_dims_refuse_widths_without_an_instance():
+    with pytest.raises(ValueError, match="heads a block"):
+        sc.ssd_launch_dims(1, 256, 4, 128, 1, 128, 128, SMS,
+                           slice_heads=2)         # 2 x 16 tiles > 16
+    with pytest.raises(ValueError, match="heads a block"):
+        sc.ssd_launch_dims(1, 256, 4, 64, 4, 128, 128, SMS,
+                           slice_heads=2)         # one head a group
+
+
+def test_ssd_launch_dims_mirror_the_source():
+    """The rule's constants and instances are the source's."""
+    src = (Path(sc.__file__).resolve().parents[1] / "csrc"
+           / sc.SOURCE).read_text()
+    tc = src[src.index("namespace tc {"):]
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", tc).group(1))
+    assert (const("T"), const("TQ"), const("PAD"), const("NB"),
+            const("SD")) == (sc.TILE, sc.QUERY_ROWS, sc.PAD, sc.STATE_COLS,
+                             sc.STATE_SLOTS)
+    inst = set(re.findall(r"SSD_TC\((\d+), (\d+)\)", tc))
+    want = {(str(k), str(w)) for k in sc.ACC_TILES for w in sc.SLICE_HEADS
+            if k * w <= sc.MAX_ACC_TILES}
+    assert inst == want
+
+
+def test_vector_staging():
+    x = torch.zeros(2, 64, 4, 64, dtype=torch.bfloat16)
+    b = torch.zeros(2, 64, 1, 128, dtype=torch.bfloat16)
+    assert sc.vector_staging(x, b, b)
+    proj = torch.zeros(2, 64, 4 * 64 + 256, dtype=torch.bfloat16)
+    xv = proj[..., :256].reshape(2, 64, 4, 64)
+    bv = proj[..., 256:384].reshape(2, 64, 1, 128)
+    assert sc.vector_staging(xv, bv, bv)
+    odd = torch.zeros(2, 64, 1, 24 + 1, dtype=torch.bfloat16)[..., 1:]
+    assert not sc.vector_staging(x, odd, b)
+    assert not sc.vector_staging(x[..., :60], b, b)
