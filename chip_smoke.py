@@ -87,7 +87,29 @@ Phases, each of which raises on failure (exit code != 0):
     instance in interleaved rounds, its bound on the bf16 tensor cores
     with C . B^T counted once per group, and the former bound (f32 rate,
     C . B^T once per head) beside it;
-14. a ``{"kernels": [...]}`` line: per kernel its launches, error, time
+14. training on plans, with every launch count 0 just before each part
+    and read just after (each must stay 0: no kernel has a backward):
+    a) ``cim_conv2d`` and ``mapped_conv2d`` gradients against
+       ``F.conv2d`` autograd on cnn8's six layers (served 512x512
+       mapping, and a 64x64 one with G up to 8 whose border windows write
+       positions twice) and DN40-b2l3 at batch 8, within 1e-4 of max|g|;
+       the sdk entry refuses a kernel that requires grad, ``train_plan``
+       refuses the served cnn8 mapping's auto plan (sdk layers); the
+       served CNN8-2's forward with one writer per output position and
+       with every window's write, timed;
+    b) ``launch.train --plan-net`` at full width, batch 32, accum 2:
+       cnn8 (6 steps), densenet40's 39 layers (4 steps) with remat off
+       and auto; per run the step ms (median after the first), images/s,
+       the busy share of one more step under ``torch.profiler``, its
+       measured peak allocation beside the plan's estimates and the
+       segment count; cnn8's first-step gradients and per-step losses
+       against the same run on the CPU (1e-4 of max|g|, 1e-3 relative),
+       densenet40's losses remat off against auto (1e-6 relative; bitwise
+       printed), the measured peak lower with auto;
+    c) the Table II proxy: ``train_cnn`` through the mapped executor at
+       G = 1, 2, 4 (150 steps, n_train 1024, n_test 256): accuracy and
+       ms/step printed, finite losses gated;
+15. a ``{"kernels": [...]}`` line: per kernel its launches, error, time
     at its path's shapes, the plain version's time, the least time the
     card could take (its bound) and the library call's time;
 
@@ -1319,6 +1341,309 @@ def ssd_conv_phases(dev, card: str) -> list:
     return rows
 
 
+#: the training phases: the plan trainer's batch and accumulation, its
+#: steps on cnn8 and densenet40, and the Table II proxy's steps
+TRAIN_BATCH, TRAIN_ACCUM = 32, 2
+TRAIN_STEPS = {"cnn8": 6, "densenet40": 4}
+TABLE2_STEPS = 150
+#: gradients on the card vs F.conv2d's (TF32 off), relative to max|g|
+GRAD_RTOL = 1e-4
+#: cnn8's plan trainer on the card vs the same run on the CPU: the first
+#: step's gradients relative to max|g|, per-step losses relative (Adam
+#: turns rounding-level gradient differences into updates of up to lr)
+TRAIN_GRAD_RTOL, TRAIN_LOSS_RTOL = 1e-4, 1e-3
+#: densenet40's losses with remat off and with remat auto
+REMAT_LOSS_RTOL = 1e-6
+
+
+def _grads(fn, x, k):
+    """(dL/dx, dL/dk) of L = sum(fn(x, k)**2)."""
+    import torch
+    x, k = x.clone().requires_grad_(True), k.clone().requires_grad_(True)
+    return torch.autograd.grad((fn(x, k) ** 2).sum(), (x, k))
+
+
+def grad_phase(dev, card: str) -> None:
+    """Phase 14a: cim_conv2d's and mapped_conv2d's gradients on the card
+    against F.conv2d autograd (pruned channels' kernel gradient zeroed:
+    the executors skip them) on cnn8's six layers (the serving mapping,
+    and the 64x64 one whose border windows write positions twice) and
+    DN40-b2l3 at batch 8; a kernel that requires grad is refused by the
+    sdk entry, and train_plan refuses the served cnn8 mapping's auto plan
+    (five sdk layers).  Then the serving cost of one writer per output
+    position on the served CNN8-2, the one layer the cnn8 serving plan
+    runs on cim_conv2d (:func:`scatter_cost`)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    import types
+    from repro_torch.cnn import cim_conv2d, mapped_conv2d
+    from repro_torch.cnn.mapped_net import zero_pruned_kernels
+    from repro_torch.cnn.train import train_plan
+    from repro_torch.core import ArrayConfig, MacroGrid, map_net, networks
+    from repro_torch.kernels import sdk_conv as sk
+    from repro_torch.launch import serve_cnn
+    reset_all_counts()
+    arr = ArrayConfig(512, 512)
+    cnn8, _ = serve_cnn.map_for_serving("cnn8", arr, "TetrisG-SDK")
+    cnn8_g8 = map_net("cnn8", networks.cnn8(), ArrayConfig(64, 64),
+                      "TetrisG-SDK", MacroGrid(1, 1), groups=(1, 2, 4, 8))
+    dn40, _ = serve_cnn.map_for_serving("densenet40", arr, "TetrisG-SDK")
+    cases = ([("512x512", m) for m in cnn8.layers]
+             + [("64x64 G<=8", m) for m in cnn8_g8.layers]
+             + [("512x512", next(m for m in dn40.layers
+                                 if m.layer.name == "DN40-b2l3"))])
+    rng = np.random.RandomState(SEED)
+    worst = 0.0
+    for label, m in cases:
+        x, k = layer_data(m, rng, dev)
+        lay = m.layer
+        want = _grads(lambda x, k: F.conv2d(
+            x, k.permute(3, 2, 0, 1), stride=lay.stride, groups=m.group),
+            x, k)
+        # the executors skip pruned channels: no gradient reaches them
+        one = types.SimpleNamespace(layers=(m,))
+        want = (want[0], zero_pruned_kernels(one, [want[1]])[0])
+        errs = []
+        for fn in (cim_conv2d, mapped_conv2d):
+            got = _grads(lambda x, k: fn(m, x, k), x, k)
+            errs += [max_err(a, b)[1] for a, b in zip(got, want)]
+        torch.cuda.synchronize()
+        worst = max(worst, *errs)
+        print(f"[grad] {lay.name:10s} {label:10s} G={m.group}: cim dx "
+              f"{errs[0]:.2e} dk {errs[1]:.2e}, mapped dx {errs[2]:.2e} dk "
+              f"{errs[3]:.2e} of max|g| vs F.conv2d (tol {GRAD_RTOL:g})")
+        if max(errs) > GRAD_RTOL:
+            raise AssertionError(f"{lay.name} {label}: executor gradients "
+                                 f"disagree with F.conv2d's")
+    m = cnn8.layers[1]
+    x, k = layer_data(m, rng, dev)
+    try:
+        sk.sdk_conv(m, x, k.requires_grad_(True))
+    except RuntimeError as e:
+        print(f"[grad] sdk_conv with a kernel that requires grad: {e}")
+    else:
+        raise AssertionError("sdk_conv accepted a kernel that requires grad")
+    try:
+        train_plan(cnn8, steps=1, batch=TRAIN_BATCH, executor_policy="auto",
+                   device=dev)
+    except ValueError as e:
+        print(f"[grad] train_plan(executor_policy='auto') on the served "
+              f"cnn8 mapping: {e}")
+    else:
+        raise AssertionError("train_plan trained through sdk layers")
+    print(f"[grad] {len(cases)} layers x 2 executors, worst {worst:.2e} of "
+          f"max|g|")
+    scatter_cost(cnn8.layers[0], dev, card)
+    counts = launch_counts()
+    print(f"[grad] kernel launches over phase 14a: {counts}")
+    if any(counts.values()):
+        raise AssertionError("the gradient checks launched a kernel")
+
+
+def _every_write(layer, tile):
+    """Every window's every write, duplicates included: the executors'
+    scatter before they kept one writer per output position."""
+    import numpy as np
+    from repro_torch.cnn import cim_conv
+    out = []
+    for (ph, pw), origins in cim_conv.placement_groups(layer, tile).items():
+        s = layer.stride
+        oy, ox = np.broadcast_arrays(*cim_conv.scatter_indices(
+            origins, (ph - layer.k_h) // s + 1, (pw - layer.k_w) // s + 1, s))
+        out.append((np.arange(oy.size), oy.reshape(-1), ox.reshape(-1)))
+    return tuple(out)
+
+
+def scatter_cost(m, dev, card: str) -> None:
+    """The serving cost of one writer per output position: cim_conv2d's
+    forward on ``m`` at batch 8 with the kept writes and with every
+    window's write, in interleaved rounds (medians): the device time of
+    one call under torch.profiler, and the time per call.  The forward
+    copies its index tensors from the host on every call, so the stream
+    cannot be held (``device_ms``) while it enqueues."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.cnn import cim_conv
+    x, k = layer_data(m, np.random.RandomState(SEED), dev)
+    kept = cim_conv.kept_writes
+
+    def every():
+        cim_conv.kept_writes = _every_write
+        try:
+            return cim_conv.cim_conv2d(m, x, k)
+        finally:
+            cim_conv.kept_writes = kept
+
+    def device_time(fn):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    fns = {"kept": lambda: cim_conv.cim_conv2d(m, x, k), "every": every}
+    dev_t = {n: [] for n in fns}
+    call = {n: [] for n in fns}
+    for _ in range(ROUNDS):
+        for n, f in fns.items():
+            dev_t[n].append(device_time(f))
+            call[n].append(call_ms(f, 50))
+    med = {n: (sorted(dev_t[n])[ROUNDS // 2], sorted(call[n])[ROUNDS // 2])
+           for n in fns}
+    n = sum(len(o) for t in m.tiles
+            for o in cim_conv.placement_groups(m.layer, t).values())
+    print(f"[grad] scatter cost, cim_conv2d {m.layer.name} batch {BATCH} "
+          f"({n} windows; medians of {ROUNDS} interleaved rounds): device "
+          f"{med['kept'][0]:.5f} ms a call with one writer per position vs "
+          f"{med['every'][0]:.5f} ms with every write; per call "
+          f"{med['kept'][1]:.5f} vs {med['every'][1]:.5f} ms on {card}")
+
+
+def _step_stats(name: str, remat, dev, card: str, step_ms: float) -> dict:
+    """One more optimizer step of ``name``'s plan trainer on the card: the
+    device's peak allocation over it (above what was allocated before)
+    and its busy share under torch.profiler."""
+    import torch
+    from repro_torch.cnn.train import _make_step, plan_training
+    from repro_torch.launch.train import plan_net_mapping
+    from repro_torch.optim import adamw_init
+    tr = plan_training(plan_net_mapping(name), batch=TRAIN_BATCH,
+                       accum=TRAIN_ACCUM, remat=remat, device=dev)
+    step = _make_step(tr.loss_sum, 1e-3)
+    params, opt = tr.params, adamw_init(tr.params)
+    params, opt, _ = step(params, opt, *tr.batch_at(0))      # warm
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step(params, opt, *tr.batch_at(1))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    profile_call(f"{name} remat={remat} one train step (batch "
+                 f"{TRAIN_BATCH}, accum {TRAIN_ACCUM})",
+                 lambda: step(params, opt, *tr.batch_at(1)), step_ms)
+    return {"peak_mb": peak / 1e6, "above_mb": (peak - base) / 1e6,
+            "est_mb": tr.plan.peak_bytes / 1e6,
+            "unremat_mb": tr.plan.unremat_peak_bytes / 1e6,
+            "segments": len(tr.plan.spans)}
+
+
+def _train_cli(name: str, remat: str, device: str):
+    """``launch.train --plan-net`` as a user runs it; returns its result,
+    losses and step seconds."""
+    from repro_torch.launch import train
+    return train.main(["--plan-net", name, "--remat", remat, "--steps",
+                       str(TRAIN_STEPS[name]), "--batch", str(TRAIN_BATCH),
+                       "--accum", str(TRAIN_ACCUM), "--seed", str(SEED),
+                       "--device", device])
+
+
+def _first_step_grads(name: str, device: str) -> list:
+    """The first optimizer step's gradients of ``name``'s plan trainer."""
+    from repro_torch.cnn.train import _accum_grads, plan_training
+    from repro_torch.launch.train import plan_net_mapping
+    from repro_torch.optim import tree_leaves
+    tr = plan_training(plan_net_mapping(name), batch=TRAIN_BATCH,
+                       accum=TRAIN_ACCUM, device=device)
+    _, g = _accum_grads(tr.loss_sum, tr.params, *tr.batch_at(0))
+    return tree_leaves(g)
+
+
+def train_phase(dev, card: str) -> None:
+    """Phase 14b: the plan trainer at full width through ``launch.train
+    --plan-net`` (module docstring), every launch count 0 after it."""
+    import statistics
+    import numpy as np
+    import torch
+    reset_all_counts()
+    runs = {}
+    for name, remat in (("cnn8", "off"), ("densenet40", "off"),
+                        ("densenet40", "auto")):
+        t0 = time.perf_counter()
+        r, losses, secs = _train_cli(name, remat, dev.type)
+        wall = time.perf_counter() - t0
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{name} remat={remat}: a loss is not "
+                                 f"finite: {losses}")
+        step_ms = statistics.median(secs[1:]) * 1e3
+        st = _step_stats(name, None if remat == "off" else remat, dev, card,
+                         step_ms)
+        runs[(name, remat)] = (r, losses, st)
+        print(f"[train] {name} remat={remat} batch {TRAIN_BATCH} accum "
+              f"{TRAIN_ACCUM}: {len(losses)} steps in {wall:.3f} s; step "
+              f"{step_ms:.4f} ms (median after the first, first "
+              f"{secs[0] * 1e3:.4f} ms), {TRAIN_BATCH / step_ms * 1e3:.1f} "
+              f"images/s; losses {losses}; measured peak {st['peak_mb']:.1f}"
+              f" MB ({st['above_mb']:.1f} MB above the step's start) vs "
+              f"estimate peak_mb {r.peak_mb:.1f} / unremat_peak_mb "
+              f"{r.unremat_peak_mb:.1f}; {r.segments} segment(s) on {card}")
+    # cnn8: the same run on the CPU
+    g_card = _first_step_grads("cnn8", dev.type)
+    g_cpu = _first_step_grads("cnn8", "cpu")
+    errs = [max_err(a.cpu(), b)[1] for a, b in zip(g_card, g_cpu)]
+    _, cpu_losses, _ = _train_cli("cnn8", "off", "cpu")
+    card_losses = runs[("cnn8", "off")][1]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+    print(f"[train] cnn8 card vs CPU: first-step gradients within "
+          f"{max(errs):.2e} of max|g| (tol {TRAIN_GRAD_RTOL:g}); per-step "
+          f"losses within {rel:.2e} relative (tol {TRAIN_LOSS_RTOL:g}); CPU "
+          f"losses {cpu_losses}")
+    if max(errs) > TRAIN_GRAD_RTOL or rel > TRAIN_LOSS_RTOL:
+        raise AssertionError("cnn8's plan trainer on the card disagrees with "
+                             "the CPU")
+    # densenet40: remat off vs auto
+    off, auto = runs[("densenet40", "off")], runs[("densenet40", "auto")]
+    rel = max(abs(a - b) / abs(a) for a, b in zip(off[1], auto[1]))
+    again = _train_cli("densenet40", "off", dev.type)[1]
+    why = "" if off[1] == again else (
+        " (the patch gather's backward, index_put_ with accumulate, and "
+        "index_select's, index_add_, sum with atomics on CUDA)")
+    print(f"[train] densenet40 remat off vs auto: losses within {rel:.2e} "
+          f"relative (tol {REMAT_LOSS_RTOL:g}), bitwise {off[1] == auto[1]};"
+          f" remat off run twice bitwise {off[1] == again}{why}; "
+          f"{auto[0].segments} segments; measured step peak "
+          f"{off[2]['above_mb']:.1f} -> "
+          f"{auto[2]['above_mb']:.1f} MB above the step's start, estimate "
+          f"{off[0].peak_mb:.1f} -> {auto[0].peak_mb:.1f} MB")
+    if rel > REMAT_LOSS_RTOL:
+        raise AssertionError("densenet40's losses move with remat")
+    if not (auto[2]["peak_mb"] < off[2]["peak_mb"]
+            and auto[2]["above_mb"] < off[2]["above_mb"]):
+        raise AssertionError("remat auto did not lower the measured peak")
+    counts = launch_counts()
+    print(f"[train] kernel launches over the training phases: {counts}")
+    if any(counts.values()):
+        raise AssertionError("the training path launched a kernel")
+
+
+def table2_phase(dev, card: str) -> None:
+    """Phase 14c: the Table II proxy, train_cnn through the mapped
+    executor at G = 1, 2, 4; finite losses gate, accuracy is printed."""
+    import math
+    from repro_torch.cnn.models import cnn8_config
+    from repro_torch.cnn.train import train_cnn
+    reset_all_counts()
+    t0 = time.perf_counter()
+    for g in (1, 2, 4):
+        t1 = time.perf_counter()
+        r = train_cnn(cnn8_config(group=g), steps=TABLE2_STEPS,
+                      n_train=1024, n_test=256, executor="mapped",
+                      device=dev)
+        ms = (time.perf_counter() - t1) / TABLE2_STEPS * 1e3
+        print(f"[table2] cnn8-g{g} mapped {TABLE2_STEPS} steps batch 64: "
+              f"final loss {r.final_loss:.4f}, train_acc {r.train_acc:.4f}, "
+              f"test_acc {r.test_acc:.4f}; {ms:.4f} ms/step (the call's "
+              f"wall time over its steps: draws and accuracy included) on "
+              f"{card}")
+        if not math.isfinite(r.final_loss):
+            raise AssertionError(f"Table II proxy G={g}: loss not finite")
+    counts = launch_counts()
+    print(f"[table2] {time.perf_counter() - t0:.1f} s; kernel launches "
+          f"{counts}")
+    if any(counts.values()):
+        raise AssertionError("the Table II proxy launched a kernel")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1543,6 +1868,10 @@ def main() -> int:
     rows += transformer_phases(dev, card)
     # -- 10-13. ssd_chunk, im2win_conv, the mamba2-130m path, ops -------
     rows += ssd_conv_phases(dev, card)
+    # -- 14. training on plans: gradients, the plan trainer, Table II --
+    grad_phase(dev, card)
+    train_phase(dev, card)
+    table2_phase(dev, card)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,15 +10,22 @@ reconstructs the OFM against ``F.conv2d`` up to float summation order.
 
 Overlap semantics: border-clamped (ceil-form) and marginal windows may
 recompute output positions already produced by a neighbouring window of
-the same channel pass; recomputed values are identical, so each tile
-writes into its own buffer with *set* semantics, and buffers accumulate
-across tiles (the partial-sum adds of the shift-and-add peripheral,
-Fig 3).  Placements are batched: all window loads of one shape are
-gathered into one stacked patch tensor and hit the weight matrix as one
-batched matmul, followed by one scatter.
+the same channel pass; recomputed values are equal up to rounding, so
+each tile writes into its own buffer with *set* semantics, and buffers
+accumulate across tiles (the partial-sum adds of the shift-and-add
+peripheral, Fig 3).  Placements are batched: all window loads of one
+shape are gathered into one stacked patch tensor and hit the weight
+matrix as one batched matmul, followed by one scatter.
+
+Every output position has exactly one writer (:func:`kept_writes`): the
+last window of the tile's placement order that produces it, which is
+the value a sequential set-semantics scatter leaves.  A scatter with
+duplicate indices would hand the full output gradient to every writer
+(``index_put_``'s backward), and on CUDA it has no defined winner.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Tuple
 
@@ -105,12 +112,43 @@ def gather_patches(xc: torch.Tensor, origins: np.ndarray, ph: int, pw: int
 def scatter_indices(origins: np.ndarray, py: int, px: int, stride: int
                     ) -> Tuple[np.ndarray, np.ndarray]:
     """Output-raster indices of every placement's (py x px) output tile:
-    (OY, OX) broadcastable to (N, py, px), for a set-semantics scatter
-    (overlapping windows recompute identical values)."""
+    (OY, OX) broadcastable to (N, py, px); overlapping windows recompute
+    some positions (:func:`kept_writes` keeps one writer of each)."""
     ys, xs = origins[:, 0], origins[:, 1]
     OY = (ys // stride)[:, None, None] + np.arange(py)[None, :, None]
     OX = (xs // stride)[:, None, None] + np.arange(px)[None, None, :]
     return OY, OX
+
+
+@functools.lru_cache(maxsize=None)
+def kept_writes(layer: ConvLayerSpec, tile: TileMapping
+                ) -> Tuple[Tuple[np.ndarray, np.ndarray, np.ndarray], ...]:
+    """One writer per output position across all of a tile's window
+    shapes, in :func:`placement_groups` order.  Per shape: ``(src, OY,
+    OX)`` — the kept flat indices into that shape's (N, py, px) outputs
+    and their output-raster rows and columns.  The last write of each
+    position is kept, so a forward equals the sequential set-semantics
+    scatter, and every position's gradient reaches one writer."""
+    s = layer.stride
+    per_shape = []
+    for (ph, pw), origins in placement_groups(layer, tile).items():
+        py = (ph - layer.k_h) // s + 1
+        px = (pw - layer.k_w) // s + 1
+        OY, OX = scatter_indices(origins, py, px, s)
+        OY, OX = np.broadcast_arrays(OY, OX)
+        per_shape.append((OY.reshape(-1), OX.reshape(-1)))
+    flat = np.concatenate([oy * layer.o_w + ox for oy, ox in per_shape])
+    # last occurrence of each position: first occurrence in reverse
+    _, first_rev = np.unique(flat[::-1], return_index=True)
+    keep = np.zeros(flat.size, bool)
+    keep[flat.size - 1 - first_rev] = True
+    out, base = [], 0
+    for oy, ox in per_shape:
+        k = keep[base:base + oy.size]
+        src = np.flatnonzero(k)
+        out.append((src, oy[k], ox[k]))
+        base += oy.size
+    return tuple(out)
 
 
 def _long(a: np.ndarray, device) -> torch.Tensor:
@@ -124,7 +162,9 @@ def build_weight_matrix(layer: ConvLayerSpec, kernel: torch.Tensor,
     kernel: (k_h, k_w, ic_t, oc_t) slice ->
     matrix: (ic_t * pw_h * pw_w, n_pos * oc_t); rows are channel-major
     window pixels, columns enumerate (position, oc).  Built as a single
-    scatter — every (position, kernel-pixel) destination is distinct.
+    scatter — every (position, kernel-pixel) destination is distinct
+    (one position index ``p`` per column block, and within it the kernel
+    pixels land on distinct window pixels), so its backward is exact.
     """
     s = layer.stride
     k_h, k_w = layer.k_h, layer.k_w
@@ -177,7 +217,9 @@ def cim_conv2d(mapping: LayerMapping, x: torch.Tensor,
         xc = xr[:, :, c_base:c_base + kept]     # (b, g, kept, i_h, i_w)
         ks = kr[:, :, c_base:c_base + kept]     # (kh, kw, kept, g, oc_g)
         buf = torch.zeros_like(out)
-        for (ph, pw), origins in placement_groups(layer, tile).items():
+        writes = kept_writes(layer, tile)
+        for ((ph, pw), origins), (src, OY, OX) in zip(
+                placement_groups(layer, tile).items(), writes):
             # the tile's (ic_t x oc_t) array loads batch into ONE matmul
             # per group: channel passes stack along the contraction rows,
             # oc passes concatenate along columns
@@ -192,12 +234,12 @@ def cim_conv2d(mapping: LayerMapping, x: torch.Tensor,
             n = len(origins)
             flat = gather_patches(xc, origins, ph, pw)  # (b,g,N,kept*ph*pw)
             prod = torch.einsum("bgnr,grp->bgnp", flat, Wm)
-            prod = prod.reshape(b, g, n, py, px, oc_g)
-            prod = prod.permute(0, 1, 5, 2, 3, 4)   # (b,g,oc_g,N,py,px)
-            # set-semantics scatter; duplicate indices only occur where
-            # the recomputed values are identical
-            OY, OX = scatter_indices(origins, py, px, s)
-            buf[:, :, :, _long(OY, x.device), _long(OX, x.device)] = prod
+            prod = prod.reshape(b, g, n * py * px, oc_g)
+            prod = prod.permute(0, 1, 3, 2)         # (b,g,oc_g,N*py*px)
+            # one writer per output position (kept_writes): recomputed
+            # duplicates are dropped before the scatter
+            buf[:, :, :, _long(OY, x.device), _long(OX, x.device)] = \
+                prod.index_select(3, _long(src, x.device))
         out = out + buf
         # a tile's nominal channel range is kept + pruned: the pruned
         # trailing slice is skipped here, not shifted into the next tile

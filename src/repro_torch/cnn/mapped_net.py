@@ -32,7 +32,7 @@ import torch.nn.functional as F
 
 from ..core.types import LayerMapping, MacroGrid, NetworkMapping, TileMapping
 from .cim_conv import (_long, build_weight_matrix, gather_patches,
-                       placement_groups, scatter_indices)
+                       kept_writes, placement_groups)
 
 
 # ---------------------------------------------------------------------------
@@ -190,7 +190,8 @@ def _tile_operands(mapping: LayerMapping, tile: TileMapping,
         raise ValueError(f"{layer.name}: {len(weights)} prepared weight "
                          f"blocks for {len(groups)} window shapes")
     out = []
-    for (ph, pw), origins in groups.items():
+    for ((ph, pw), origins), (src, OY, OX) in zip(
+            groups.items(), kept_writes(layer, tile)):
         py = (ph - layer.k_h) // s + 1
         px = (pw - layer.k_w) // s + 1
         K = ic_t * ph * pw
@@ -198,8 +199,8 @@ def _tile_operands(mapping: LayerMapping, tile: TileMapping,
         n = flat.shape[2]
         p_all = flat.reshape(b, g, n, R * sub.r, K)
         p_all = p_all.permute(3, 0, 1, 2, 4).reshape(R, sub.r, b, g, n, K)
-        OY, OX = scatter_indices(origins, py, px, s)
         out.append(dict(p_all=p_all, w_all=weights[len(out)],
+                        src=_long(src, xc.device),
                         OY=_long(OY, xc.device), OX=_long(OX, xc.device),
                         py=py, px=px))
     return out
@@ -293,7 +294,9 @@ def mapped_conv2d(mapping: LayerMapping, x: torch.Tensor,
         for ri in range(R):
             # one channel super-step: set semantics within it (every
             # window writes this step's full partial sum), accumulate
-            # across steps (shift-and-add)
+            # across steps (shift-and-add).  The oc super-steps write
+            # disjoint channel slices, and within one the shapes' kept
+            # writes (kept_writes) give each output position one writer
             buf = torch.zeros_like(acc)
             for ci in range(C):
                 for sh in shapes:
@@ -302,9 +305,9 @@ def mapped_conv2d(mapping: LayerMapping, x: torch.Tensor,
                     n = res.shape[3]
                     vals = res.reshape(sub.c, b, g, n, py, px, oc_t)
                     vals = vals.permute(1, 2, 0, 6, 3, 4, 5).reshape(
-                        b, g, soc, n, py, px)
+                        b, g, soc, n * py * px)
                     buf[:, :, ci * soc:(ci + 1) * soc,
-                        sh["OY"], sh["OX"]] = vals
+                        sh["OY"], sh["OX"]] = vals.index_select(3, sh["src"])
             acc = acc + buf
         out = out + acc[:, :, :oc_g]
         # skip the tile's pruned trailing channels instead of shifting

@@ -11,13 +11,15 @@ from .memory import LayerMemory, network_memory, peak_bytes, total_bytes
 from .plan import (EXECUTORS, PASSES, LayerPlan, NetworkPlan, PlanDraft,
                    PolicyLike, compile_plan)
 from .remat import allowed_cuts, canonical_remat, plan_segments
-from .run import execute_looped, execute_oracle, execute_plan
+from .run import (apply_layer, donation_supported, execute_layerwise,
+                  execute_looped, execute_oracle, execute_plan)
 
 __all__ = [
     "ACTIVATIONS", "GLUE_KINDS", "GlueSpec", "EXECUTORS", "LayerMemory",
     "LayerPlan", "NetworkPlan", "PASSES", "PlanDraft", "PolicyLike",
-    "allowed_cuts", "attention_stage", "canonical_remat", "center_crop",
-    "compile_plan", "execute_looped", "execute_oracle", "execute_plan",
+    "allowed_cuts", "apply_layer", "attention_stage", "canonical_remat",
+    "center_crop", "compile_plan", "donation_supported",
+    "execute_layerwise", "execute_looped", "execute_oracle", "execute_plan",
     "fit_spatial", "layernorm", "network_memory", "peak_bytes",
     "plan_segments", "resolve_chain", "total_bytes",
 ]

@@ -31,8 +31,13 @@ on a TPU.
 Plans are frozen, hashable and picklable; they join the memo result /
 disk cache keyed on mapping + resolved policy + device + batch + flags.
 
-Not ported yet: device meshes (``mesh=None`` only), the ``"tuned"``
-policy (the autotuner), and layerwise (``chained=False``) plans.
+``chained=False`` compiles a *layerwise* plan: per-layer executor
+dispatch with no inter-layer glue (``GlueSpec(kind="layerwise")``), for
+callers that own the plumbing between layers (`cnn.models.apply_cnn`
+through `exec.run.apply_layer`); `execute_plan` refuses it.
+
+Not ported yet: device meshes (``mesh=None`` only) and the ``"tuned"``
+policy (the autotuner).
 """
 from __future__ import annotations
 
@@ -88,6 +93,8 @@ class NetworkPlan:
     layers: Tuple[LayerPlan, ...]
     batch: Optional[int]
     device: str = "cuda"
+    #: False for a layerwise plan (`compile_plan(chained=False)`)
+    chained: bool = True
     #: cross-layer pipeline depth of the JAX package's fused program.
     #: Kept in the IR so plan keys line up with the JAX package; inert
     #: here, where the forward runs eagerly layer by layer.
@@ -226,6 +233,7 @@ class PlanDraft:
     net: NetworkMapping
     execs: Tuple[str, ...]
     batch: Optional[int]
+    chained: bool
     device: str
     block: str
     vmem_budget: int
@@ -268,6 +276,10 @@ def pass_check_glue(d: PlanDraft) -> PlanDraft:
     entering each layer."""
     net = d.net
     n = len(net.layers)
+    if not d.chained:
+        return replace(
+            d, glue=tuple(GlueSpec(kind="layerwise") for _ in range(n)),
+            carries=tuple(m.layer.ic for m in net.layers))
     glue, carries = [], []
     carry_c = net.layers[0].layer.ic
     saved: list = []                # channel widths of GlueSpec.save stack
@@ -356,11 +368,15 @@ def pass_estimate_memory(d: PlanDraft) -> PlanDraft:
 
 
 def pass_segment(d: PlanDraft) -> PlanDraft:
-    """Choose rematerialization boundaries (exec/remat.py) at the glue
-    pass's legal boundaries."""
+    """Choose rematerialization boundaries (exec/remat.py).  Chained
+    plans cut only at the glue pass's legal boundaries; layerwise plans
+    (`apply_cnn`, which owns its own glue) may cut anywhere."""
     if d.remat is None:
         return d                    # remat off: segments stays None
-    allowed = rematlib.allowed_cuts(d.glue)
+    if d.chained:
+        allowed = rematlib.allowed_cuts(d.glue)
+    else:
+        allowed = tuple(range(len(d.net.layers) - 1))
     return replace(d, segments=rematlib.plan_segments(d.mem, allowed,
                                                       d.remat))
 
@@ -391,7 +407,8 @@ def _freeze(d: PlanDraft) -> NetworkPlan:
         for m, ex, sch, g, c, mm in zip(
             d.net.layers, d.execs, d.schedules, d.glue, d.carries, d.mem))
     return NetworkPlan(net=d.net, layers=layers, batch=d.batch,
-                       device=d.device, lookahead=d.lookahead,
+                       device=d.device, chained=d.chained,
+                       lookahead=d.lookahead,
                        segments=d.segments)
 
 
@@ -404,6 +421,7 @@ def _compile(draft: PlanDraft) -> NetworkPlan:
 def compile_plan(net: NetworkMapping, *,
                  executor_policy: PolicyLike = "auto",
                  batch: Optional[int] = None,
+                 chained: bool = True,
                  device: DeviceLike = None,
                  block: Optional[str] = None,
                  vmem_budget: Optional[int] = None,
@@ -415,6 +433,7 @@ def compile_plan(net: NetworkMapping, *,
     ``executor_policy`` — ``"auto"`` (per-layer heuristic on the plan's
     device type, see `_auto_executor`), one executor name for every
     layer, a per-layer sequence, or a callable ``LayerMapping -> name``.
+    ``chained=False`` compiles a layerwise plan (module docstring).
     ``lookahead`` (default 1) stays in the IR and is inert here;
     ``vmem_budget`` (default: ``REPRO_SDK_VMEM_BUDGET``, else 8 MiB)
     bounds the sdk executor's ``block="auto"`` whole-array working set.
@@ -442,9 +461,9 @@ def compile_plan(net: NetworkMapping, *,
         vmem_budget = default_vmem_budget()
     remat_spec = rematlib.canonical_remat(remat)
     execs = _resolve_policy(executor_policy, net, backend=dev)
-    draft = PlanDraft(net=net, execs=execs, batch=batch, device=dev,
-                      block=block, vmem_budget=vmem_budget,
+    draft = PlanDraft(net=net, execs=execs, batch=batch, chained=chained,
+                      device=dev, block=block, vmem_budget=vmem_budget,
                       lookahead=lookahead, remat=remat_spec)
-    key = (net, execs, batch, dev, block, vmem_budget, lookahead,
+    key = (net, execs, batch, chained, dev, block, vmem_budget, lookahead,
            remat_spec)
     return memo.cached_plan(key, lambda: _compile(draft))

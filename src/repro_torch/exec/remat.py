@@ -4,9 +4,9 @@ A copy of the JAX package's pass: the planning is integer arithmetic on
 the mapping and must match it byte for byte.  A plan segment is a
 half-open layer range ``(s, e)``; a training forward checkpoints each
 segment so only the segment boundary carries are saved for backward
-and everything inside is recomputed.  In this port the segments are
-planned and recorded in the plan; executing them waits for training on
-plans (the inference forward of `execute_plan` does not need them).
+and everything inside is recomputed.  `execute_plan` (exec/run.py) and
+`cnn.models.apply_cnn` run each segment under
+``torch.utils.checkpoint`` when autograd records the forward.
 
 **Boundary rule.**  A cut is allowed after layer ``i`` only where the
 carry is a plain chain: ``glue[i].kind == "chain"`` *and* no saved

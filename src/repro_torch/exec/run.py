@@ -10,13 +10,25 @@ The JAX package's whole-forward ``jax.jit`` program and its lookahead
 program) have no counterpart here; ``NetworkPlan.lookahead`` stays in
 the IR and is inert.  Capturing the forward in a CUDA graph is later
 work.  Torch has no input-buffer donation: ``donate`` is accepted and
-changes nothing.
+changes nothing, and :func:`donation_supported` is False.
+
+A plan with remat segments runs each segment under
+``torch.utils.checkpoint`` when autograd records the forward: the
+backward recomputes a segment from its boundary carry instead of
+keeping every layer's saved tensors (exec/memory.py prices both).
+
+`apply_layer` runs ONE layer of a (possibly layerwise) plan — the
+`cnn.models.apply_cnn` path, which owns the pooling, bias and
+activation between convs — and `execute_layerwise` runs every layer of
+a plan on its own input.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+import functools
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..cnn.cim_conv import cim_conv2d, reference_conv2d
 from ..cnn.mapped_net import mapped_conv2d
@@ -53,18 +65,19 @@ def _oracle_conv(lp: LayerPlan, x: torch.Tensor,
                             groups=lp.mapping.group)
 
 
-def _forward(plan: NetworkPlan, kernels: Sequence[torch.Tensor],
-             x: torch.Tensor, activation, conv: ConvFn,
-             plain: bool = False) -> torch.Tensor:
-    """The planned forward chain.  Glue kinds were classified at compile
-    time (exec/glue.py); this only replays them.  ``plain`` runs the
-    attention stage on its plain softmax version (the oracle)."""
+def _segment(plan: NetworkPlan, s: int, e: int, activation, conv: ConvFn,
+             plain: bool, x: torch.Tensor, *kernels: torch.Tensor
+             ) -> torch.Tensor:
+    """Layers [s, e) of the planned chain on carry ``x``; ``kernels`` are
+    theirs.  Glue kinds were classified at compile time (exec/glue.py);
+    this only replays them.  The saved-residual stack is segment-local:
+    the segment pass cuts only where it is empty (exec/remat.py)."""
     # with explicit glue (transformer lowerings) the glue owns every
     # nonlinearity — the network-global activation applies only to
     # inferred-glue (CNN) plans, where no GlueSpec.act is ever set
     explicit = plan.net.glue is not None
     saved = []                      # GlueSpec.save stack (residual bases)
-    for lp, k in zip(plan.layers, kernels):
+    for lp, k in zip(plan.layers[s:e], kernels):
         lay = lp.mapping.layer
         spec = lp.glue
         xp = fit_spatial(x, lay.i_h, lay.i_w)
@@ -88,7 +101,37 @@ def _forward(plan: NetworkPlan, kernels: Sequence[torch.Tensor],
     return x
 
 
+def _forward(plan: NetworkPlan, kernels: Sequence[torch.Tensor],
+             x: torch.Tensor, activation, conv: ConvFn,
+             plain: bool = False, remat: bool = False) -> torch.Tensor:
+    """The planned forward chain.  With ``remat`` and more than one plan
+    span, each span runs under ``torch.utils.checkpoint`` while autograd
+    records; otherwise the whole chain runs as one segment.  ``plain``
+    runs the attention stage on its plain softmax version (the
+    oracle)."""
+    spans = plan.spans
+    if not (remat and len(spans) > 1 and torch.is_grad_enabled()):
+        return _segment(plan, 0, len(plan.layers), activation, conv, plain,
+                        x, *kernels)
+    for s, e in spans:
+        body = functools.partial(_segment, plan, s, e, activation, conv,
+                                 plain)
+        x = checkpoint(body, x, *kernels[s:e], use_reentrant=False)
+    return x
+
+
+def donation_supported() -> bool:
+    """Whether the plan's inputs can be donated to the forward: never —
+    torch has no input-buffer donation (the JAX package donates on an
+    accelerator)."""
+    return False
+
+
 def _check_call(plan: NetworkPlan, kernels, x: torch.Tensor) -> None:
+    if not plan.chained:
+        raise ValueError(
+            "execute_plan needs a chained plan; this one was compiled "
+            "with chained=False (per-layer dispatch via apply_layer)")
     if len(kernels) != len(plan.layers):
         raise ValueError(f"{len(kernels)} kernels for "
                          f"{len(plan.layers)} planned layers")
@@ -116,9 +159,10 @@ def execute_plan(plan: NetworkPlan, kernels: Sequence[torch.Tensor],
     plan; explicit glue (transformer lowerings) owns its nonlinearities
     and ignores it.  ``donate`` is accepted
     for the JAX package's signature; torch has no buffer donation, so
-    it changes nothing (serving reports ``donated=False``)."""
+    it changes nothing (serving reports ``donated=False``).  A plan with
+    remat segments checkpoints each segment when autograd records."""
     _check_call(plan, kernels, x)
-    return _forward(plan, kernels, x, activation, _layer_conv)
+    return _forward(plan, kernels, x, activation, _layer_conv, remat=True)
 
 
 def execute_looped(plan: NetworkPlan, kernels: Sequence[torch.Tensor],
@@ -138,5 +182,27 @@ def execute_oracle(plan: NetworkPlan, kernels: Sequence[torch.Tensor],
     layers, `matmul_layer_ref` for matmul layers and
     `flash_attention_ref` for every attention stage; no kernel wrapper
     is called (pruned channels must be zeroed in ``kernels``)."""
+    if not plan.chained:
+        raise ValueError("execute_oracle needs a chained plan")
     _check_call(plan, kernels, x)
     return _forward(plan, kernels, x, activation, _oracle_conv, plain=True)
+
+
+def apply_layer(plan: NetworkPlan, i: int, x: torch.Tensor,
+                kernel: torch.Tensor) -> torch.Tensor:
+    """Execute layer ``i`` of the plan on its own — the `apply_cnn`
+    path, where pooling / bias / activation between convs belong to the
+    model, not the plan."""
+    return _layer_conv(plan.layers[i], x, kernel)
+
+
+def execute_layerwise(plan: NetworkPlan, kernels: Sequence[torch.Tensor],
+                      xs: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """Every layer on its OWN input — a layer set that does not chain
+    (several bench networks are representative layer sets).  One
+    executor call per layer, as :func:`apply_layer` in a loop."""
+    if len(kernels) != len(plan.layers) or len(xs) != len(plan.layers):
+        raise ValueError(f"{len(kernels)} kernels / {len(xs)} inputs for "
+                         f"{len(plan.layers)} planned layers")
+    return tuple(_layer_conv(lp, x, k)
+                 for lp, k, x in zip(plan.layers, kernels, xs))

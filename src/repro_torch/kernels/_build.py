@@ -9,7 +9,8 @@ import; an unchanged source found built is loaded as it is.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
 :func:`launch` calls an entry point and raises on the CUDA error it
 returns; :func:`operand_dtype`, :func:`cuda_operand` and :func:`ptr`
-check and prepare its tensor arguments.
+check and prepare its tensor arguments, and :func:`no_backward` refuses
+a call that autograd would have to differentiate.
 
     PYTHONPATH=src python -m repro_torch.kernels._build --ptxas-report \
         [source.cu ...]
@@ -142,6 +143,20 @@ def operand_dtype(**operands: torch.Tensor) -> torch.dtype:
         raise ValueError(f"{'/'.join(operands)} are {dtype}; the kernels "
                          f"take f32 or bf16")
     return dtype
+
+
+def no_backward(name: str, *operands: torch.Tensor) -> None:
+    """Refuse a kernel call that autograd would have to differentiate:
+    grad mode on and an operand that requires grad.  No kernel has a
+    backward, here or in the reference (a Pallas kernel there), and a
+    launch returns a tensor with no ``grad_fn``, so a backward would
+    leave the operands without gradients.  The check is the same on
+    both devices; the plain versions stay differentiable."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        raise RuntimeError(
+            f"{name} has no backward (nor has its kernel in the reference):"
+            f" call it under torch.no_grad(), or differentiate through the "
+            f"plain version or the 'reference' / 'mapped' executors")
 
 
 def cuda_operand(t: torch.Tensor, name: str) -> torch.Tensor:

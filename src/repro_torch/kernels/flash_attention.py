@@ -33,7 +33,8 @@ from typing import NamedTuple
 
 import torch
 
-from ._build import cuda_operand, launch, operand_dtype, ptr
+from ._build import (cuda_operand, launch, no_backward, operand_dtype,
+                     ptr)
 from .tetris_matmul import sm_count
 from .window_product import SMEM_LIMIT
 
@@ -155,6 +156,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     overrides :func:`flash_launch_dims`' rows per block, for measuring
     the two against each other.  Counts its launches in
     ``flash_attention_cuda.launches``."""
+    no_backward("flash_attention", q, k, v)
     q, k, v = (cuda_operand(t, n).contiguous()
                for t, n in ((q, "q"), (k, "k"), (v, "v")))
     dtype = operand_dtype(q=q, k=k, v=v)
@@ -193,7 +195,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (BH, Sq, D); k/v (BH, Sk, D) — heads pre-folded into the leading
     dim.  Returns (BH, Sq, D) for any Sq and Sk, f32 or bf16 (softmax and
     sums in f32) as q, k and v are.  CUDA tensors launch the kernel; CPU
-    tensors take :func:`flash_attention_ref`."""
+    tensors take :func:`flash_attention_ref`.  No backward
+    (:func:`_build.no_backward`)."""
+    no_backward("flash_attention", q, k, v)
     operand_dtype(q=q, k=k, v=v)
     if q.device.type == "cuda":
         return flash_attention_cuda(q, k, v, causal=causal,

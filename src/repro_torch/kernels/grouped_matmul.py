@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from ._build import cuda_operand, operand_dtype
+from ._build import cuda_operand, no_backward, operand_dtype
 from .tetris_matmul import _library, launch_gemm
 
 
@@ -36,6 +36,7 @@ def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     are cast to f32 on the card for the f32 kernel, the result back to
     bf16).  Counts its launches in ``grouped_matmul_cuda.launches`` and
     the blocks they ran in ``.blocks``."""
+    no_backward("grouped_matmul", x, w)
     x, w = cuda_operand(x, "x"), cuda_operand(w, "w")
     dtype = operand_dtype(x=x, w=w)
     x, w = x.float(), w.float()
@@ -65,7 +66,9 @@ def reset_counts() -> None:
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (G, M, D) @ w (G, D, F) -> (G, M, F), diagonal blocks only, f32
     or bf16 (summed in f32) as x and w are.  CUDA tensors launch the
-    kernel; CPU tensors take :func:`grouped_matmul_ref`."""
+    kernel; CPU tensors take :func:`grouped_matmul_ref`.  No backward
+    (:func:`_build.no_backward`)."""
+    no_backward("grouped_matmul", x, w)
     operand_dtype(x=x, w=w)
     if x.device.type == "cuda":
         return grouped_matmul_cuda(x, w)

@@ -34,7 +34,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core.tetris import factor_pairs_square_first
-from ._build import cuda_operand, launch, operand_dtype, ptr
+from ._build import (cuda_operand, launch, no_backward, operand_dtype,
+                     ptr)
 from .window_product import SMEM_LIMIT, k_groups, round4, smem_bytes
 
 SOURCE = "im2win_conv.cu"
@@ -185,6 +186,7 @@ def im2win_conv_cuda(x: torch.Tensor, w: torch.Tensor, *,
     launches in ``im2win_conv_cuda.launches``, grid steps in ``.steps``
     and the blocks the C entry launched (its ``gridDim.x``) in
     ``.blocks``."""
+    no_backward("im2win_conv", x, w)
     x, w = cuda_operand(x, "x"), cuda_operand(w, "w")
     dtype = operand_dtype(x=x, w=w)
     x, w = x.float().contiguous(), w.float().contiguous()
@@ -219,7 +221,9 @@ def im2win_conv(x: torch.Tensor, w: torch.Tensor, *,
     """x (B, H, W, C) pre-padded; w (kh, kw, C, O); stride 1 VALID ->
     (B, o_h, o_w, O), f32 or bf16 (summed in f32) as x and w are.  CUDA
     tensors launch the kernel; CPU tensors take
-    :func:`im2win_conv_plain`."""
+    :func:`im2win_conv_plain`.  No backward
+    (:func:`_build.no_backward`)."""
+    no_backward("im2win_conv", x, w)
     operand_dtype(x=x, w=w)
     if x.device.type == "cuda":
         return im2win_conv_cuda(x, w, window=window)

@@ -43,7 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.types import LayerMapping
-from ._build import launch, ptr
+from ._build import launch, no_backward, ptr
 from .window_product import SMEM_LIMIT, k_groups, round4, smem_bytes
 
 #: Fallback ``block="auto"`` budget (bytes) when the environment does
@@ -367,6 +367,7 @@ def sdk_whole(xt: torch.Tensor, kt: torch.Tensor, g: TileGeom
     b, oc_pad, o_h, o_w).  Counts its launches in ``sdk_whole.launches``,
     the grid steps (ci, oi, wi) they ran in ``sdk_whole.steps`` and the
     blocks the C entry reports it launched in ``sdk_whole.blocks``."""
+    no_backward("sdk_whole", xt, kt)
     _check_operands(xt, kt, g)
     b = xt.shape[0]
     out = _output(g, b, kt.shape[3], xt.device)
@@ -386,6 +387,7 @@ def sdk_window(xt: torch.Tensor, kt: torch.Tensor, g: TileGeom
     (group, tile); returns (ar_c, b, oc_pad, o_h, o_w).  Counts its
     launches in ``sdk_window.launches`` and the grid steps (ci, oi, wi)
     they ran in ``sdk_window.steps``."""
+    no_backward("sdk_window", xt, kt)
     _check_operands(xt, kt, g)
     b = xt.shape[0]
     out = _output(g, b, kt.shape[3], xt.device)
@@ -514,7 +516,9 @@ def sdk_conv(mapping: LayerMapping, x: torch.Tensor, kernel: torch.Tensor,
     (:func:`sdk_whole`), ``"window"`` (:func:`sdk_window`) or ``"auto"``
     (window whenever the whole-array working set exceeds ``vmem_budget``;
     ``None`` — :func:`default_vmem_budget`).  CUDA tensors launch the
-    kernels; CPU tensors take :func:`sdk_conv_plain`'s arithmetic."""
+    kernels; CPU tensors take :func:`sdk_conv_plain`'s arithmetic.  No
+    backward (:func:`_build.no_backward`)."""
+    no_backward("sdk_conv", x, kernel)
     if x.device.type == "cuda":
         tile_fn = _tile_cuda
     elif x.device.type == "cpu":

@@ -42,7 +42,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from ._build import launch, ptr
+from ._build import launch, no_backward, ptr
 from .tetris_matmul import sm_count
 from .window_product import SMEM_LIMIT
 
@@ -295,6 +295,7 @@ def ssd_chunk_cuda(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     :func:`ssd_launch_dims`' layout (``slice_heads`` forces its width).
     Counts its launches in ``ssd_chunk_cuda.launches`` and the blocks the
     C entry reports in ``ssd_chunk_cuda.blocks``."""
+    no_backward("ssd_chunk", x, dt, a_log, b, c)
     if x.dtype not in _DTYPES:
         raise ValueError(f"x is {x.dtype}, the kernel takes {_DTYPES}")
     x, dt, b, c = (_operand(t, n, x.dtype) for t, n in
@@ -342,7 +343,9 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     """x (B,S,H,P); dt (B,S,H) post-softplus; a_log (H,); b/c (B,S,G,N).
     S % chunk == 0.  Returns (y_intra (B,S,H,P) in x's dtype, states
     (B, S/chunk, H, P, N) f32).  CUDA tensors launch the kernel; CPU
-    tensors take :func:`ssd_chunk_plain`."""
+    tensors take :func:`ssd_chunk_plain`.  No backward
+    (:func:`_build.no_backward`)."""
+    no_backward("ssd_chunk", x, dt, a_log, b, c)
     if x.device.type == "cuda":
         return ssd_chunk_cuda(x, dt, a_log, b, c, chunk=chunk)
     if x.device.type == "cpu":

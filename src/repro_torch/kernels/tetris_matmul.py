@@ -30,7 +30,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from ._build import cuda_operand, launch, operand_dtype, ptr
+from ._build import (cuda_operand, launch, no_backward, operand_dtype,
+                     ptr)
 
 SOURCE = "matmul.cu"
 
@@ -125,6 +126,7 @@ def tetris_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     operands are cast to f32 on the card first and the result back to
     bf16.  Counts its launches in ``tetris_matmul_cuda.launches`` and the
     blocks they ran in ``.blocks``."""
+    no_backward("tetris_matmul", x, w)
     x, w = cuda_operand(x, "x"), cuda_operand(w, "w")
     dtype = operand_dtype(x=x, w=w)
     x, w = x.float(), w.float()
@@ -152,7 +154,8 @@ def reset_counts() -> None:
 def tetris_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (M, K) @ w (K, N) -> (M, N), f32 or bf16 (summed in f32) as x
     and w are.  CUDA tensors launch the kernel; CPU tensors take
-    :func:`matmul_ref`."""
+    :func:`matmul_ref`.  No backward (:func:`_build.no_backward`)."""
+    no_backward("tetris_matmul", x, w)
     operand_dtype(x=x, w=w)
     if x.device.type == "cuda":
         return tetris_matmul_cuda(x, w)

@@ -8,7 +8,9 @@ attention stage at a ragged length, ssd_chunk (f32, and bf16 on the
 tensor cores at every head-slice width and both staging instances, the
 blocks held to the launch rule; also through the SSD mixer) and
 im2win_conv (also through the ops surface, with each of its
-kernels, in f32 and bf16).  Marked
+kernels, in f32 and bf16); and training: the executors' gradients
+against F.conv2d's, the kernel entry points refusing autograd, and the
+plan trainer on the card against the CPU.  Marked
 ``cuda``: without a CUDA device each test skips.  On the card:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
@@ -541,3 +543,66 @@ def test_ops_bf16_matches_plain(cuda, op):
     torch.cuda.synchronize()
     assert y.dtype == torch.bfloat16 and counter.launches == 1
     _close(y.float(), plain(*(x.float() for x in xs)), BF16_RTOL)
+
+
+# ------------------------------------------------------------- training
+
+def _grads(fn, x, k):
+    x, k = x.clone().requires_grad_(True), k.clone().requires_grad_(True)
+    return torch.autograd.grad((fn(x, k) ** 2).sum(), (x, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("array,groups", [(64, (1, 2, 4, 8)),
+                                          (512, (1, 2, 4))])
+def test_executor_gradients_match_conv2d(cuda, array, groups):
+    """cim_conv2d's and mapped_conv2d's gradients on the card against
+    F.conv2d autograd (TF32 off) on cnn8's layers: each output position
+    has one writer, so no gradient is counted twice."""
+    from repro_torch.cnn import cim_conv2d, mapped_conv2d
+    from repro_torch.core import ArrayConfig, MacroGrid, map_net, networks
+    net = map_net("cnn8", networks.cnn8(), ArrayConfig(array, array),
+                  "TetrisG-SDK", MacroGrid(1, 1), groups=groups)
+    rng = np.random.RandomState(0)
+    for m in net.layers:
+        lay = m.layer
+        x = torch.as_tensor(rng.randn(4, lay.ic, lay.i_h, lay.i_w)
+                            .astype(np.float32), device=cuda)
+        k = torch.as_tensor(rng.randn(lay.k_h, lay.k_w, lay.ic // m.group,
+                                      lay.oc).astype(np.float32), device=cuda)
+        want = _grads(lambda x, k: torch.nn.functional.conv2d(
+            x, k.permute(3, 2, 0, 1), groups=m.group), x, k)
+        for fn in (cim_conv2d, mapped_conv2d):
+            for got, ref in zip(_grads(lambda x, k: fn(m, x, k), x, k),
+                                want):
+                err = float((got - ref).abs().max())
+                assert err <= 1e-4 * float(ref.abs().max()), lay.name
+
+
+@pytest.mark.cuda
+def test_kernel_entry_points_refuse_autograd(cuda):
+    from repro_torch.kernels import ops
+    a = torch.randn(64, 32, device=cuda, requires_grad=True)
+    b = torch.randn(32, 16, device=cuda)
+    with pytest.raises(RuntimeError, match="has no backward"):
+        ops.matmul(a, b)
+    with torch.no_grad():
+        assert ops.matmul(a, b).shape == (64, 16)
+
+
+@pytest.mark.cuda
+def test_train_plan_card_matches_cpu(cuda):
+    """cnn8's plan trainer on the card and on the CPU from the same
+    draws: per-step losses within 1e-3 relative, no kernel launched."""
+    from repro_torch.cnn.train import train_plan
+    from repro_torch.kernels import sdk_conv as sk
+    from repro_torch.launch.train import plan_net_mapping
+    net = plan_net_mapping("cnn8")
+    sk.reset_counts()
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        losses[dev] = []
+        train_plan(net, steps=3, batch=8, accum=2, remat="auto",
+                   losses=losses[dev], device=dev)
+    assert sk.sdk_whole.launches == sk.sdk_window.launches == 0
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3)

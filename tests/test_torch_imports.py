@@ -44,7 +44,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.launch.serve, repro_torch.launch.steps, "
             "repro_torch.models.transformer, repro_torch.models.weights, "
             "repro_torch.kernels.ops, repro_torch.kernels.ref, "
-            "repro_torch.kernels.ssd_chunk, repro_torch.kernels.im2win_conv\n"
+            "repro_torch.kernels.ssd_chunk, repro_torch.kernels.im2win_conv, "
+            "repro_torch.optim, repro_torch.data, repro_torch.cnn.models, "
+            "repro_torch.cnn.train, repro_torch.launch.train\n"
             "from repro_torch.configs import get_config\n"
             "get_config('stablelm_1_6b'); get_config('whisper_base')\n"
             "get_config('mamba2_130m').param_count()\n"
@@ -58,7 +60,10 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_entry_points_need_a_card(monkeypatch):
-    from repro_torch.cnn import kernels_from_numpy
+    from repro_torch.cnn import kernels_from_numpy, params_from_numpy
+    from repro_torch.cnn.models import cnn8_config
+    from repro_torch.cnn.train import train_cnn, train_plan
+    from repro_torch.launch import train
     from repro_torch.core import ArrayConfig, map_net, networks
     from repro_torch.device import resolve_device
     from repro_torch.exec import compile_plan
@@ -76,7 +81,11 @@ def test_entry_points_need_a_card(monkeypatch):
                  lambda: serve_cnn.serve(net, 2, 1),
                  lambda: serve_cnn.main(["--steps", "1"]),
                  lambda: serve.main(["--smoke", "--gen", "1"]),
-                 lambda: kernels_from_numpy([np.zeros((1, 1, 1, 1))])):
+                 lambda: kernels_from_numpy([np.zeros((1, 1, 1, 1))]),
+                 lambda: params_from_numpy({"w": np.zeros(2)}),
+                 lambda: train_plan(net, steps=1, batch=2),
+                 lambda: train_cnn(cnn8_config(), steps=1),
+                 lambda: train.main(["--plan-net", "cnn8", "--steps", "1"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
