@@ -109,9 +109,36 @@ Phases, each of which raises on failure (exit code != 0):
     c) the Table II proxy: ``train_cnn`` through the mapped executor at
        G = 1, 2, 4 (150 steps, n_train 1024, n_test 256): accuracy and
        ms/step printed, finite losses gated;
-15. a ``{"kernels": [...]}`` line: per kernel its launches, error, time
+15. arrival-driven serving, each run with every launch count at 0 just
+    before and read just after, its launches held to the sum over its
+    served batches (warm-up included) of the tier plan's launches a
+    forward:
+    a) ``serve_cnn.main --max-delay-ms 2`` on cnn8 (policy auto, tiers 1,
+       2, 4, 8, 64 requests of 1-4 rows) backlogged, at 500 requests/s
+       and backlogged with ``--adaptive-delay``: every request served
+       once, exec ms a batch per tier, queue-delay percentiles; at each
+       tier served, the request rows of a forward on a zero-padded input
+       against ``execute_oracle`` on those rows (pad-and-mask); the
+       backlogged run's busy share under ``torch.profiler``;
+    b) ``fleet.serve_fleet`` as ``serve_cnn --fleet`` builds it: cnn8,
+       Inception's chainable prefix, DenseNet40 and the whisper-base
+       encoder at full width (seq 1024), policy auto, max batch 4, 48
+       requests at 200/s, a 50 ms SLO, constants shared: the CLI's rows,
+       per model exec ms a batch, images/s (tokens/s), queue-delay
+       percentiles and SLO attainment; one constants materialization per
+       network; the schedule on a fake clock equal to the one a process
+       without the card builds; then ``--fleet cnn8 --policy mapped``
+       with and without ``--no-share-constants``, and
+       ``execute_plan(constants=)`` bitwise the plain forward;
+    c) ``serve_cnn.main --replicas 2`` (spawned workers, each with its
+       own CUDA context) behind a disk cache warmed first, plain and with
+       ``--kill-worker 1``: every request served exactly once (with the
+       kill one death and a re-queue), each worker's start-up ms, table
+       builds and disk hits;
+16. a ``{"kernels": [...]}`` line: per kernel its launches, error, time
     at its path's shapes, the plain version's time, the least time the
-    card could take (its bound) and the library call's time;
+    card could take (its bound) and the library call's time (and, for
+    the kernels phase 15 serves, its launches there);
 
 then the card line and, last, ``{"ok": true, "device": {...}}``.  The
 script needs the checkout beside it (``src/``) and a CUDA device.
@@ -1086,7 +1113,8 @@ def profile_call(label: str, fn, wall_ms: float, kernel: str = "") -> None:
     """One ``fn()`` under ``torch.profiler``: its device time (kernels,
     copies, fills) beside the call's wall time when it serves (their
     ratio is the device's busy share), the part of the device entries
-    whose name holds ``kernel``, and the largest entries."""
+    whose name holds ``kernel`` with the names it matched, and the
+    largest entries."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1098,12 +1126,15 @@ def profile_call(label: str, fn, wall_ms: float, kernel: str = "") -> None:
     total_us = sum(e.self_device_time_total for e in dev)
     if total_us == 0:
         print(f"[profile] {label}: device time not measured (the profiler "
-              f"recorded no device events)")
+              f"recorded no device events); {wall_ms:.4f} ms wall time")
         return
     part = ""
     if kernel:
-        k_us = sum(e.self_device_time_total for e in dev if kernel in e.key)
-        part = f"{kernel} {k_us / 1e3:.4f} ms ({100 * k_us / total_us:.1f} %); "
+        hits = [e for e in dev if kernel in e.key]
+        k_us = sum(e.self_device_time_total for e in hits)
+        part = (f"{kernel} {k_us / 1e3:.4f} ms ({100 * k_us / total_us:.1f} "
+                f"%) in " + (", ".join(f"{e.key} x{e.count}" for e in hits)
+                             or "no entry") + "; ")
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
     print(f"[profile] {label}: {total_us / 1e3:.4f} ms of device time in "
           f"{sum(e.count for e in dev)} device events, "
@@ -1644,6 +1675,326 @@ def table2_phase(dev, card: str) -> None:
         raise AssertionError("the Table II proxy launched a kernel")
 
 
+#: phase 15, arrival-driven serving: cnn8's dynamic runs (max batch 8,
+#: requests of 1-4 rows), the fleet (max batch 4, 48 requests at 200/s,
+#: a 50 ms queue-delay SLO) with whisper-base at full width, and two
+#: spawned replicas (max batch 4, 48 backlogged requests)
+DYN_ARGS = ["--net", "cnn8", "--policy", "auto", "--max-batch", "8",
+            "--max-delay-ms", "2", "--max-request", "4", "--requests", "64",
+            "--warmup", "1", "--seed", str(SEED)]
+# the fixed and the adaptive delay backlogged twice each, interleaved, so
+# the spread between two runs of one policy stands beside their difference
+DYN_RUNS = (("backlogged", ["--arrival-rate", "0"]),
+            ("500/s", ["--arrival-rate", "500"]),
+            ("backlogged, adaptive delay", ["--arrival-rate", "0",
+                                            "--adaptive-delay"]),
+            ("backlogged, repeat", ["--arrival-rate", "0"]),
+            ("backlogged, adaptive delay, repeat", ["--arrival-rate", "0",
+                                                    "--adaptive-delay"]))
+FLEET_NETS = ("cnn8", "inception", "densenet40")
+FLEET_WHISPER = ("whisper_base", 1024)
+FLEET_MAX_BATCH, FLEET_REQUESTS, FLEET_RATE, FLEET_SLO_MS = 4, 48, 200.0, 50.0
+REPLICA_ARGS = ["--net", "cnn8", "--replicas", "2", "--max-batch", "4",
+                "--max-delay-ms", "2", "--requests", "48", "--policy",
+                "auto", "--warmup", "1", "--seed", str(SEED)]
+SERVED_KERNELS = ("sdk_whole", "sdk_window", "tetris_matmul",
+                  "grouped_matmul", "flash_attention")
+
+
+def expected_launches(served: dict) -> dict:
+    """Sum over ``{plan: forwards}`` of the plan's launches a forward
+    (`NetworkPlan.launches_per_forward`)."""
+    total = dict.fromkeys(SERVED_KERNELS, 0)
+    for plan, forwards in served.items():
+        for k, n in plan.launches_per_forward().items():
+            total[k] += forwards * n
+    return total
+
+
+def check_served(label: str, served: dict) -> dict:
+    """The launches counted since the last reset against the plans'
+    prediction; returns the counted launches of the served kernels."""
+    counts = launch_counts()
+    got = {k: counts[k] for k in SERVED_KERNELS}
+    want = expected_launches(served)
+    print(f"[serve] {label}: launches {got}, predicted from the tier plans "
+          f"{want}")
+    if got != want or any(counts[k] for k in counts
+                          if k not in SERVED_KERNELS):
+        raise AssertionError(f"{label}: the served launches {counts} differ "
+                             f"from the tier plans' {want}")
+    return got
+
+
+def dynamic_phase(cnn8, dev, card: str) -> dict:
+    """Phase 15a: ``serve_cnn.main --max-delay-ms`` on cnn8 (policy auto),
+    backlogged, at 500 requests/s and backlogged with the adaptive delay,
+    then backlogged with each delay policy again;
+    every request served once, the launches of each run equal to the
+    tier plans' over its batches (warm-up included), pad-and-mask held
+    to the oracle at each tier served, and the backlogged run's busy
+    share.  Returns the backlogged run's launches."""
+    import torch
+    from repro_torch.exec import compile_plan, execute_oracle, execute_plan
+    from repro_torch.launch import serve_cnn
+    first = None
+    used = set()
+    for label, extra in DYN_RUNS:
+        reset_all_counts()
+        s = serve_cnn.main(DYN_ARGS + extra)
+        rate = float(extra[1])
+        trace = serve_cnn.poisson_arrivals(64, rate, 4, seed=SEED)
+        if s.request_images != sum(r for _, r in trace):
+            raise AssertionError(f"dynamic {label}: {s.request_images} "
+                                 f"images served of the trace's "
+                                 f"{sum(r for _, r in trace)}")
+        warm = s.warmup_steps // len(s.tiers)
+        plans = {t: compile_plan(cnn8, executor_policy="auto", batch=t,
+                                 device=dev) for t in s.tiers}
+        got = check_served(f"dynamic cnn8 {label}", {
+            plans[t]: ts.batches + warm for t, ts in s.tiers.items()})
+        for t, ts in sorted(s.tiers.items()):
+            if ts.batches:
+                used.add(t)
+                print(f"[serve] dynamic cnn8 {label} tier {t}: {ts.batches} "
+                      f"batches, exec_s {ts.exec_s / ts.batches * 1e3:.4f} ms"
+                      f" a batch, {ts.request_images}/{ts.padded_images} "
+                      f"images on {card}")
+        print(f"[serve] dynamic cnn8 {label}: {s.images_per_s:.1f} images/s"
+              f" ({s.padded_images_per_s:.1f} padded), queue delay p50 "
+              f"{s.delay_ms(50):.4f} p95 {s.delay_ms(95):.4f} p99 "
+              f"{s.delay_ms(99):.4f} ms, wall {s.wall_s * 1e3:.3f} ms on "
+              f"{card}")
+        if first is None:
+            first = (s, got)
+    # pad-and-mask on the card: a tier's forward on a zero-padded input
+    # keeps its request rows
+    ks, xh = serve_cnn.serving_inputs(cnn8, 8, SEED, dev)
+    any_batch = compile_plan(cnn8, executor_policy="auto", device=dev)
+    for t in sorted(used):
+        rows = max(1, t - 1)
+        x = torch.zeros((t,) + xh.shape[1:], device=dev)
+        x[:rows] = torch.as_tensor(xh[:rows], device=dev)
+        plan = compile_plan(cnn8, executor_policy="auto", batch=t,
+                            device=dev)
+        y = execute_plan(plan, ks, x)[:rows]
+        r = execute_oracle(any_batch, ks, x[:rows])
+        torch.cuda.synchronize()
+        err, rel, scale = max_err(y, r)
+        print(f"[serve] pad-and-mask tier {t}: {rows} request rows of a "
+              f"zero-padded forward vs the oracle on those rows, "
+              f"max_abs_err={err:.3e} rel={rel:.3e} (tol {FORWARD_RTOL:g} "
+              f"of max|y|={scale:.3f})")
+        if not (bool(torch.isfinite(y).all()) and rel <= FORWARD_RTOL):
+            raise AssertionError(f"tier {t}: padded rows leak into the "
+                                 f"request rows")
+    s, got = first
+    reqs = serve_cnn.poisson_arrivals(64, 0.0, 4, seed=SEED)
+    profile_call("dynamic cnn8 backlogged (64 requests)",
+                 lambda: serve_cnn.serve_dynamic(
+                     cnn8, reqs, max_batch=8, max_delay_ms=2.0,
+                     policy="auto", warmup=0, seed=SEED, device=dev),
+                 s.wall_s * 1e3, "sdk_whole")
+    return got
+
+
+def fleet_phase(dev, card: str) -> dict:
+    """Phase 15b: ``fleet.serve_fleet`` as ``serve_cnn --fleet`` builds it
+    — cnn8, Inception's chainable prefix, DenseNet40 and the whisper-base
+    encoder at full width, policy auto, shared constants: every request
+    served once, launches equal to the tier plans' over the served
+    batches (warm-up included), one constants materialization per
+    network, and the schedule on a fake clock equal to the one a CPU-only
+    process builds.  Then cnn8 alone under ``--policy mapped`` with and
+    without shared constants (the constants path, no kernel), and the
+    constants-fed forward bitwise the plain one.  Returns the launches."""
+    import dataclasses
+    import os
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import ArrayConfig, memo
+    from repro_torch.exec import (compile_plan, constant_counts,
+                                  execute_plan, prepare_constants)
+    from repro_torch.launch import batching, fleet, serve_cnn
+    from repro_torch.launch.transformer import transformer_mapping
+    arr = ArrayConfig(512, 512)
+    mappings, dropped, _ = serve_cnn.fleet_mappings(FLEET_NETS, arr,
+                                                    "TetrisG-SDK")
+    name, seq = FLEET_WHISPER
+    mappings[name] = transformer_mapping(get_config(name), seq=seq,
+                                         array=arr)
+    dropped[name] = 0
+    names = list(mappings)
+    config = fleet.FleetConfig(models=tuple(
+        fleet.ModelSpec(n, max_batch=FLEET_MAX_BATCH, max_delay_s=2e-3,
+                        slo_ms=FLEET_SLO_MS) for n in names))
+    trace = fleet.mixed_poisson_trace(names, FLEET_REQUESTS, FLEET_RATE,
+                                      FLEET_MAX_BATCH, seed=SEED)
+    st = memo.snapshot()
+    reset_all_counts()
+    t0 = time.perf_counter()
+    stats, _ = fleet.serve_fleet(mappings, config, trace, policy="auto",
+                                 warmup=1, seed=SEED, dropped_layers=dropped,
+                                 device=dev)
+    print(f"[serve] fleet {'/'.join(names)}: served in "
+          f"{time.perf_counter() - t0:.3f} s with set-up (ladders, weights "
+          f"and warm-up)")
+    serve_cnn._print_fleet(stats, tag="none", max_batch=FLEET_MAX_BATCH,
+                           max_delay_ms=2.0, st=st)
+    if stats.request_images != sum(r for _, _, r in trace):
+        raise AssertionError("the fleet did not serve every request once")
+    served = {}
+    for n in names:
+        for t in batching.batch_tiers(FLEET_MAX_BATCH):
+            plan = compile_plan(mappings[n], executor_policy="auto",
+                                batch=t, device=dev)
+            ts = stats.models[n].tiers.get(t)
+            served[plan] = 1 + (ts.batches if ts else 0)
+    got = check_served("fleet", served)
+    exec_total = 0.0
+    for n in names:
+        ms = stats.models[n]
+        ex = sum(t.exec_s for t in ms.tiers.values())
+        exec_total += ex
+        toks = ("" if ms.request_tokens is None else
+                f", {ms.request_tokens / stats.wall_s:.1f} tokens/s")
+        ds = ms.delays_s
+        print(f"[serve] fleet {n}: {ms.batches} batches, exec_s "
+              f"{ex / max(ms.batches, 1) * 1e3:.4f} ms a batch "
+              f"(tiers {sorted(ms.tiers)}), "
+              f"{ms.request_images / stats.wall_s:.1f} images/s "
+              f"({ms.padded_images / stats.wall_s:.1f} padded){toks}, queue "
+              f"delay p50 {batching.percentile(ds, 50) * 1e3:.4f} p95 "
+              f"{batching.percentile(ds, 95) * 1e3:.4f} p99 "
+              f"{batching.percentile(ds, 99) * 1e3:.4f} ms, SLO "
+              f"{FLEET_SLO_MS:g} ms attained {ms.slo_attainment:.3f} on "
+              f"{card}")
+        cc = constant_counts(net=mappings[n])
+        if list(cc.values()) != [1]:
+            raise AssertionError(f"{n}: constants materialized {cc}, not "
+                                 f"once for its {len(ms.tiers)} tiers")
+    print(f"[serve] fleet wall {stats.wall_s * 1e3:.3f} ms, sum of the "
+          f"models' exec_s {exec_total * 1e3:.3f} ms; constants one "
+          f"materialization per network")
+    # a served whisper-base batch as the fleet runs it: the padded host
+    # batch uploaded (8 MB at tier 4), then the forward
+    wb = stats.models[name].tiers
+    tier = max(wb)
+    ks, xh = serve_cnn.serving_inputs(mappings[name], tier, SEED, dev)
+    plan = compile_plan(mappings[name], executor_policy="auto", batch=tier,
+                        device=dev)
+    profile_call(f"fleet {name} tier-{tier} batch (upload + forward)",
+                 lambda: execute_plan(plan, ks,
+                                      torch.as_tensor(xh, device=dev)),
+                 wb[tier].exec_s / wb[tier].batches * 1e3, "Memcpy")
+    # the upload alone, on the host clock and under the profiler
+    t0 = time.perf_counter()
+    torch.as_tensor(xh, device=dev)
+    torch.cuda.synchronize()
+    profile_call(f"fleet {name} tier-{tier} upload alone ({xh.nbytes} "
+                 f"bytes, pageable)", lambda: torch.as_tensor(xh, device=dev),
+                 (time.perf_counter() - t0) * 1e3, "Memcpy")
+    # the schedule, on a fake clock, here and in a process with no card
+    vclk = batching.VClock()
+    here = [dataclasses.astuple(r) for r in fleet.run_fleet(
+        fleet.FleetScheduler(config), trace, clock=vclk, sleep=vclk.sleep)]
+    code = ("import sys, json, dataclasses\n"
+            "from repro_torch.launch import batching, fleet\n"
+            f"cfg = fleet.FleetConfig(models=tuple(fleet.ModelSpec(n, "
+            f"max_batch={FLEET_MAX_BATCH}, max_delay_s=2e-3, slo_ms="
+            f"{FLEET_SLO_MS}) for n in {names!r}))\n"
+            f"tr = fleet.mixed_poisson_trace({names!r}, {FLEET_REQUESTS}, "
+            f"{FLEET_RATE}, {FLEET_MAX_BATCH}, seed={SEED})\n"
+            "c = batching.VClock()\n"
+            "print(repr([dataclasses.astuple(r) for r in fleet.run_fleet("
+            "fleet.FleetScheduler(cfg), tr, clock=c, sleep=c.sleep)]))\n"
+            "assert 'torch' not in sys.modules\n")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(SRC))
+    cpu = subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                         capture_output=True, text=True, timeout=120).stdout
+    same = repr(here) == cpu.strip()
+    print(f"[serve] fleet schedule on a fake clock: {len(here)} launches, "
+          f"equal to a CPU-only process's (no torch imported there): {same}")
+    if not same:
+        raise AssertionError("the fleet schedule depends on the process")
+    # the constants path: cnn8 under the mapped executor
+    for share in (True, False):
+        serve_cnn.main(["--fleet", "cnn8", "--policy", "mapped",
+                        "--max-batch", "4", "--max-delay-ms", "2",
+                        "--requests", "16", "--arrival-rate", "200",
+                        "--slo-ms", str(FLEET_SLO_MS), "--warmup", "1",
+                        "--seed", str(SEED)]
+                       + ([] if share else ["--no-share-constants"]))
+    cnn8 = mappings["cnn8"]
+    plan = compile_plan(cnn8, executor_policy="mapped", batch=4, device=dev)
+    ks, xh = serve_cnn.serving_inputs(cnn8, 4, SEED, dev)
+    x = torch.as_tensor(xh, device=dev)
+    c = prepare_constants(plan, ks)
+    y_on = execute_plan(plan, ks, x, constants=c)
+    y_off = execute_plan(plan, ks, x)
+    torch.cuda.synchronize()
+    bitwise = bool(torch.equal(y_on, y_off))
+    print(f"[serve] cnn8 mapped batch 4: execute_plan(constants=) bitwise "
+          f"the forward without them: {bitwise}")
+    if not bitwise:
+        raise AssertionError("the constants-fed forward differs")
+    return got
+
+
+def replica_phase(card: str) -> None:
+    """Phase 15c: ``serve_cnn.main --replicas 2`` behind a disk cache
+    warmed here, once plain and once with worker 1 killed: every request
+    served exactly once.  The kernels were built in phase 2, so the
+    workers' start-up measures mapping and loading."""
+    import shutil
+    import tempfile
+    from repro_torch.core import ArrayConfig, memo
+    from repro_torch.launch import batching, serve_cnn
+    cache = tempfile.mkdtemp(prefix="chip-smoke-cache-")
+    try:
+        memo.set_disk_cache(cache)
+        memo.clear()                    # so the warm-up writes the disk
+        cnn8, _ = serve_cnn.map_for_serving("cnn8", ArrayConfig(512, 512),
+                                            "TetrisG-SDK")
+        batching.PlanLadder(cnn8, batching.batch_tiers(4), policy="auto")
+        trace = serve_cnn.poisson_arrivals(48, 0.0, 4, seed=SEED)
+        for kill in (None, 1):
+            extra = [] if kill is None else ["--kill-worker", str(kill)]
+            t0 = time.perf_counter()
+            rs = serve_cnn.main(REPLICA_ARGS + ["--cache-dir", cache]
+                                + extra)
+            wall = time.perf_counter() - t0
+            ok = (rs.request_images == sum(r for _, r in trace)
+                  and sum(v.served_requests for v in rs.workers.values())
+                  == len(trace) and rs.duplicate_serves == 0
+                  and rs.deaths == (kill is not None)
+                  and (kill is None or rs.requeued > 0))
+            print(f"[serve] replicas kill={kill}: " + "; ".join(
+                f"w{w} start-up {v.startup_s * 1e3:.1f} ms table_builds "
+                f"{v.table_misses} disk_hits {v.disk_hits}"
+                for w, v in sorted(rs.workers.items()))
+                + f"; deaths {rs.deaths} requeued {rs.requeued} duplicates "
+                f"{rs.duplicate_serves}; {rs.images_per_s:.1f} images/s over "
+                f"{rs.wall_s * 1e3:.3f} ms of serving, {wall:.3f} s with "
+                f"start-up on {card}")
+            if not ok:
+                raise AssertionError(f"replicas kill={kill}: not every "
+                                     f"request served exactly once")
+    finally:
+        memo.set_disk_cache(None)
+        shutil.rmtree(cache, ignore_errors=True)
+
+
+def serving_phase(cnn8, dev, card: str) -> dict:
+    """Phase 15: arrival-driven serving.  Returns {kernel: {run:
+    launches}} for the kernels line."""
+    got = {"dynamic": dynamic_phase(cnn8, dev, card),
+           "fleet": fleet_phase(dev, card)}
+    replica_phase(card)
+    return {k: {run: n[k] for run, n in got.items()} for k in SERVED_KERNELS}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1872,6 +2223,11 @@ def main() -> int:
     grad_phase(dev, card)
     train_phase(dev, card)
     table2_phase(dev, card)
+    # -- 15. arrival-driven serving: dynamic, fleet, replicas ------------
+    served = serving_phase(cnn8, dev, card)
+    for row in rows:
+        if row["name"] in served:
+            row["serving_launches"] = served[row["name"]]
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

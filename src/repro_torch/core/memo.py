@@ -161,6 +161,25 @@ def register_cache_clear(fn: Callable[[], None]) -> None:
     _aux_clears.append(fn)
 
 
+class BoundedCounts(dict):
+    """Per-key counts of actual (uncached) builds.  Past ``limit`` keys
+    the oldest is forgotten, so a long-lived process cannot grow it
+    without limit; it resets with :func:`clear`, since a cleared cache
+    builds again."""
+
+    def __init__(self, limit: int):
+        super().__init__()
+        self.limit = limit
+        register_cache_clear(self.clear)
+
+    def note(self, key) -> None:
+        if key not in self:
+            while len(self) >= self.limit:
+                del self[next(iter(self))]
+            self[key] = 0
+        self[key] += 1
+
+
 def clear() -> None:
     """Reset the in-memory caches and counters (not the disk layer)."""
     _results.clear()

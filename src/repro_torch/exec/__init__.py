@@ -5,21 +5,24 @@ transformer lowerings with explicit glue.
     plan = compile_plan(net_mapping, executor_policy="auto", batch=8)
     y = execute_plan(plan, kernels, x)
 """
+from .constants import PlanConstants, constant_counts, prepare_constants
 from .glue import (ACTIVATIONS, GLUE_KINDS, GlueSpec, attention_stage,
                    center_crop, fit_spatial, layernorm, resolve_chain)
 from .memory import LayerMemory, network_memory, peak_bytes, total_bytes
 from .plan import (EXECUTORS, PASSES, LayerPlan, NetworkPlan, PlanDraft,
-                   PolicyLike, compile_plan)
+                   PolicyLike, compile_counts, compile_plan)
 from .remat import allowed_cuts, canonical_remat, plan_segments
 from .run import (apply_layer, donation_supported, execute_layerwise,
                   execute_looped, execute_oracle, execute_plan)
 
 __all__ = [
     "ACTIVATIONS", "GLUE_KINDS", "GlueSpec", "EXECUTORS", "LayerMemory",
-    "LayerPlan", "NetworkPlan", "PASSES", "PlanDraft", "PolicyLike",
+    "LayerPlan", "NetworkPlan", "PASSES", "PlanConstants", "PlanDraft",
+    "PolicyLike",
     "allowed_cuts", "apply_layer", "attention_stage", "canonical_remat",
-    "center_crop", "compile_plan", "donation_supported",
+    "center_crop", "compile_counts", "compile_plan", "constant_counts",
+    "donation_supported",
     "execute_layerwise", "execute_looped", "execute_oracle", "execute_plan",
     "fit_spatial", "layernorm", "network_memory", "peak_bytes",
-    "plan_segments", "resolve_chain", "total_bytes",
+    "plan_segments", "prepare_constants", "resolve_chain", "total_bytes",
 ]

@@ -118,6 +118,30 @@ class NetworkPlan:
         executor per layer."""
         return len(self.layers)
 
+    def launches_per_forward(self) -> dict:
+        """The kernel launches one forward makes on the card, keyed by the
+        wrapper that counts them: an sdk layer launches its tile's kernel
+        (``sdk_whole`` or ``sdk_window``, as ``resolve_block`` picks at the
+        plan's batch) once per tile and group, a matmul layer one matmul
+        (``grouped_matmul`` for G > 1), an attention stage one
+        ``flash_attention``."""
+        from ..kernels import sdk_conv as sk
+        n = dict.fromkeys(("sdk_whole", "sdk_window", "tetris_matmul",
+                           "grouped_matmul", "flash_attention"), 0)
+        for lp in self.layers:
+            m = lp.mapping
+            if lp.executor == "sdk":
+                for t in m.tiles:
+                    mode = sk.resolve_block(lp.block, self.batch,
+                                            sk.tile_geom(m, t), m.layer,
+                                            lp.vmem_budget)
+                    n["sdk_" + mode] += m.group
+            elif lp.executor == "matmul":
+                n["grouped_matmul" if m.group > 1 else "tetris_matmul"] += 1
+            if lp.glue.post == "attention":
+                n["flash_attention"] += 1
+        return n
+
     @property
     def spans(self) -> Tuple[Tuple[int, int], ...]:
         """The segment ranges — one whole-net span when remat is off."""
@@ -466,4 +490,30 @@ def compile_plan(net: NetworkMapping, *,
                       lookahead=lookahead, remat=remat_spec)
     key = (net, execs, batch, chained, dev, block, vmem_budget, lookahead,
            remat_spec)
-    return memo.cached_plan(key, lambda: _compile(draft))
+
+    def _compile_counted():
+        _compile_counts.note(key)
+        return _compile(draft)
+
+    return memo.cached_plan(key, _compile_counted)
+
+
+#: Actual `_compile` lowerings per cache key — cache hits (in-memory or
+#: disk) do NOT count.  The serving tests assert every tier of a plan
+#: ladder compiles exactly once per process (per cache generation).
+_compile_counts = memo.BoundedCounts(512)
+
+
+def compile_counts(*, net: Optional[NetworkMapping] = None,
+                   batch: Optional[int] = None) -> dict:
+    """Copy of the per-key compile counters, optionally filtered to one
+    network mapping and/or plan batch — ``compile_counts(net=nm)``
+    values of all 1 prove each (policy, device, batch) lowered once."""
+    out = {}
+    for key, n in _compile_counts.items():
+        if net is not None and key[0] != net:
+            continue
+        if batch is not None and key[2] != batch:
+            continue
+        out[key] = n
+    return out

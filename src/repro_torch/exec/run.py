@@ -38,15 +38,16 @@ from .glue import (ACTIVATIONS, attention_stage, center_crop, fit_spatial,
                    layernorm)
 from .plan import LayerPlan, NetworkPlan
 
-ConvFn = Callable[[LayerPlan, torch.Tensor, torch.Tensor], torch.Tensor]
+ConvFn = Callable[..., torch.Tensor]
 
 
-def _layer_conv(lp: LayerPlan, x: torch.Tensor,
-                kernel: torch.Tensor) -> torch.Tensor:
-    """Dispatch one layer to its planned executor."""
+def _layer_conv(lp: LayerPlan, x: torch.Tensor, kernel: torch.Tensor,
+                weights=None) -> torch.Tensor:
+    """Dispatch one layer to its planned executor.  ``weights`` is the
+    layer's entry of `PlanConstants.weights` (None: none prepared)."""
     m = lp.mapping
     if lp.executor == "mapped":
-        return mapped_conv2d(m, x, kernel)
+        return mapped_conv2d(m, x, kernel, weights=weights)
     if lp.executor == "sdk":
         return sdk_conv(m, x, kernel, block=lp.block,
                         vmem_budget=lp.vmem_budget)
@@ -55,8 +56,8 @@ def _layer_conv(lp: LayerPlan, x: torch.Tensor,
     return cim_conv2d(m, x, kernel)
 
 
-def _oracle_conv(lp: LayerPlan, x: torch.Tensor,
-                 kernel: torch.Tensor) -> torch.Tensor:
+def _oracle_conv(lp: LayerPlan, x: torch.Tensor, kernel: torch.Tensor,
+                 weights=None) -> torch.Tensor:
     """The plain function of a layer: the einsum of a matmul layer,
     ``F.conv2d`` of a conv layer."""
     if getattr(lp.mapping.layer, "op", "conv") == "matmul":
@@ -66,10 +67,11 @@ def _oracle_conv(lp: LayerPlan, x: torch.Tensor,
 
 
 def _segment(plan: NetworkPlan, s: int, e: int, activation, conv: ConvFn,
-             plain: bool, x: torch.Tensor, *kernels: torch.Tensor
+             plain: bool, consts, x: torch.Tensor, *kernels: torch.Tensor
              ) -> torch.Tensor:
     """Layers [s, e) of the planned chain on carry ``x``; ``kernels`` are
-    theirs.  Glue kinds were classified at compile time (exec/glue.py);
+    theirs, ``consts`` (None or `PlanConstants.weights`) the whole
+    plan's.  Glue kinds were classified at compile time (exec/glue.py);
     this only replays them.  The saved-residual stack is segment-local:
     the segment pass cuts only where it is empty (exec/remat.py)."""
     # with explicit glue (transformer lowerings) the glue owns every
@@ -77,14 +79,14 @@ def _segment(plan: NetworkPlan, s: int, e: int, activation, conv: ConvFn,
     # inferred-glue (CNN) plans, where no GlueSpec.act is ever set
     explicit = plan.net.glue is not None
     saved = []                      # GlueSpec.save stack (residual bases)
-    for lp, k in zip(plan.layers[s:e], kernels):
+    for i, (lp, k) in enumerate(zip(plan.layers[s:e], kernels), s):
         lay = lp.mapping.layer
         spec = lp.glue
         xp = fit_spatial(x, lay.i_h, lay.i_w)
         if spec.save:               # residual base: the pre-norm input
             saved.append(xp)
         xin = layernorm(xp) if spec.pre == "layernorm" else xp
-        y = conv(lp, xin, k)
+        y = conv(lp, xin, k, None if consts is None else consts[i])
         if spec.act != "none":
             y = ACTIVATIONS[spec.act](y)
         elif activation is not None and not explicit:
@@ -103,7 +105,8 @@ def _segment(plan: NetworkPlan, s: int, e: int, activation, conv: ConvFn,
 
 def _forward(plan: NetworkPlan, kernels: Sequence[torch.Tensor],
              x: torch.Tensor, activation, conv: ConvFn,
-             plain: bool = False, remat: bool = False) -> torch.Tensor:
+             plain: bool = False, remat: bool = False,
+             consts=None) -> torch.Tensor:
     """The planned forward chain.  With ``remat`` and more than one plan
     span, each span runs under ``torch.utils.checkpoint`` while autograd
     records; otherwise the whole chain runs as one segment.  ``plain``
@@ -112,10 +115,10 @@ def _forward(plan: NetworkPlan, kernels: Sequence[torch.Tensor],
     spans = plan.spans
     if not (remat and len(spans) > 1 and torch.is_grad_enabled()):
         return _segment(plan, 0, len(plan.layers), activation, conv, plain,
-                        x, *kernels)
+                        consts, x, *kernels)
     for s, e in spans:
         body = functools.partial(_segment, plan, s, e, activation, conv,
-                                 plain)
+                                 plain, consts)
         x = checkpoint(body, x, *kernels[s:e], use_reentrant=False)
     return x
 
@@ -150,7 +153,7 @@ def _check_call(plan: NetworkPlan, kernels, x: torch.Tensor) -> None:
 
 def execute_plan(plan: NetworkPlan, kernels: Sequence[torch.Tensor],
                  x: torch.Tensor, *, activation=None,
-                 donate: bool = False) -> torch.Tensor:
+                 donate: bool = False, constants=None) -> torch.Tensor:
     """Run the planned forward on the plan's device.
 
     ``kernels[i]`` is layer i's kernel in grouped HWIO layout, ``x`` the
@@ -160,9 +163,27 @@ def execute_plan(plan: NetworkPlan, kernels: Sequence[torch.Tensor],
     and ignores it.  ``donate`` is accepted
     for the JAX package's signature; torch has no buffer donation, so
     it changes nothing (serving reports ``donated=False``).  A plan with
-    remat segments checkpoints each segment when autograd records."""
+    remat segments checkpoints each segment when autograd records.
+    ``constants`` is a shared `exec.constants.PlanConstants` handle for
+    this plan's network: its pre-materialized shifted-weight blocks feed
+    the mapped layers in place of their in-forward weight prep
+    (``prepare_constants``)."""
     _check_call(plan, kernels, x)
-    return _forward(plan, kernels, x, activation, _layer_conv, remat=True)
+    consts = None
+    if constants is not None:
+        if constants.net != plan.net:
+            raise ValueError("constants were prepared for a different "
+                             "network mapping than this plan")
+        if constants.executors != plan.executors:
+            raise ValueError(
+                f"constants were prepared for executors "
+                f"{constants.executors}, plan resolved {plan.executors}")
+        if len(constants.weights) != len(plan.layers):
+            raise ValueError(f"{len(constants.weights)} constant entries "
+                             f"for {len(plan.layers)} planned layers")
+        consts = constants.weights
+    return _forward(plan, kernels, x, activation, _layer_conv, remat=True,
+                    consts=consts)
 
 
 def execute_looped(plan: NetworkPlan, kernels: Sequence[torch.Tensor],

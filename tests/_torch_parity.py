@@ -5,12 +5,14 @@ compare a port result with the JAX package's.
 Every comparison is f32 against f32 with the same products summed in a
 different order, so tolerances are stated relative to max|y|."""
 import dataclasses
+import re
 
 import numpy as np
 import torch
 
 from repro import core as jcore
 from repro_torch import core as tcore
+from repro_torch.launch.batching import VClock  # noqa: F401  (shared)
 
 #: one layer, f32, another summation order: relative to max|y|
 RTOL_LAYER = 1e-5
@@ -84,3 +86,21 @@ def assert_close(got, want, rtol):
     err = float(np.abs(got - want).max())
     assert err <= rtol * scale, \
         f"max abs err {err:.3e} > {rtol:g} * max|y| ({scale:.3e})"
+
+
+def small_net_both(n_layers=2):
+    """(jax, port) mapping of cnn8's first ``n_layers`` layers on 64x64
+    arrays and a 2x2 grid (Tetris-SDK) — the serving tests' small net."""
+    return map_net_both("cnn8", lambda core: core.networks.cnn8()[:n_layers],
+                        (64, 64), "Tetris-SDK", (2, 2))
+
+
+def csv_rows(out):
+    """{row name with the tier number cut: [derived keys]} of CSV rows."""
+    rows = {}
+    for ln in out.splitlines():
+        if ln.startswith(("serve_dyn/", "serve_fleet/", "serve_replica/")):
+            name, _, derived = ln.split(",", 2)
+            rows[re.sub(r"(tier|/w)\d+$", r"\1N", name)] = [
+                kv.split("=")[0] for kv in derived.split(";") if kv]
+    return rows

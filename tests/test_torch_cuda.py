@@ -606,3 +606,119 @@ def test_train_plan_card_matches_cpu(cuda):
                    losses=losses[dev], device=dev)
     assert sk.sdk_whole.launches == sk.sdk_window.launches == 0
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# arrival-driven serving on the card
+# ---------------------------------------------------------------------------
+
+def _cnn8_512():
+    from repro_torch.core import ArrayConfig
+    from repro_torch.launch.serve_cnn import map_for_serving
+    return map_for_serving("cnn8", ArrayConfig(512, 512), "TetrisG-SDK")[0]
+
+
+def _served_launches():
+    """{kernel: launches} under the keys of
+    `NetworkPlan.launches_per_forward`."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import sdk_conv as sk
+    from repro_torch.kernels import tetris_matmul as tm
+    return {"sdk_whole": sk.sdk_whole.launches,
+            "sdk_window": sk.sdk_window.launches,
+            "tetris_matmul": tm.tetris_matmul_cuda.launches,
+            "grouped_matmul": gm.grouped_matmul_cuda.launches,
+            "flash_attention": fa.flash_attention_cuda.launches}
+
+
+def _reset_served():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import sdk_conv as sk
+    from repro_torch.kernels import tetris_matmul as tm
+    for mod in (sk, tm, gm, fa):
+        mod.reset_counts()
+
+
+@pytest.mark.cuda
+def test_serve_dynamic_backlogged_cnn8(cuda):
+    """serve_dynamic, cnn8 under auto, backlogged: every request served,
+    the sdk launches those of the tier plans over the served batches,
+    and at each tier served the request rows of a zero-padded forward
+    equal the oracle on those rows within 1e-4 of max|y|."""
+    from repro_torch.exec import compile_plan, execute_oracle, execute_plan
+    from repro_torch.launch import serve_cnn
+    net = _cnn8_512()
+    reqs = serve_cnn.poisson_arrivals(32, 0.0, 4, seed=0)
+    _reset_served()
+    s = serve_cnn.serve_dynamic(net, reqs, max_batch=8, max_delay_ms=2.0,
+                                policy="auto", warmup=1, device=cuda)
+    got = _served_launches()
+    assert s.request_images == sum(r for _, r in reqs)
+    want = dict.fromkeys(got, 0)
+    ks, xh = serve_cnn.serving_inputs(net, 8, 0, cuda)
+    any_batch = compile_plan(net, executor_policy="auto", device=cuda)
+    for tier, ts in s.tiers.items():
+        plan = compile_plan(net, executor_policy="auto", batch=tier,
+                            device=cuda)
+        for k, n in plan.launches_per_forward().items():
+            want[k] += (ts.batches + 1) * n
+        rows = max(1, tier - 1)
+        x = torch.zeros((tier,) + xh.shape[1:], device=cuda)
+        x[:rows] = torch.as_tensor(xh[:rows], device=cuda)
+        y = execute_plan(plan, ks, x)[:rows]
+        ref = execute_oracle(any_batch, ks, x[:rows])
+        assert float((y - ref).abs().max()) <= \
+            1e-4 * float(ref.abs().max())
+    assert want["sdk_whole"] + want["sdk_window"] > 0 and got == want
+
+
+@pytest.mark.cuda
+def test_serve_fleet_cnn8_whisper_smoke_launches(cuda):
+    """serve_fleet of cnn8 and whisper_smoke under auto: every request
+    served, and the sdk, tetris_matmul and flash_attention launches equal
+    the tier plans' over the served batches (one warm-up a tier)."""
+    from repro_torch.exec import compile_plan
+    from repro_torch.launch import fleet
+    from repro_torch.launch.transformer import transformer_mapping
+    maps = {"cnn8": _cnn8_512(),
+            "whisper_smoke": transformer_mapping("whisper_smoke")}
+    cfg = fleet.FleetConfig(models=tuple(
+        fleet.ModelSpec(n, max_batch=4, max_delay_s=0.002) for n in maps))
+    trace = fleet.mixed_poisson_trace(list(maps), 24, 200.0, 4, seed=0)
+    _reset_served()
+    stats, _ = fleet.serve_fleet(maps, cfg, trace, policy="auto",
+                                 device=cuda)
+    got = _served_launches()
+    assert stats.request_images == sum(r for _, _, r in trace)
+    want = dict.fromkeys(got, 0)
+    for name, net in maps.items():
+        for tier in fleet.batching.batch_tiers(4):
+            ts = stats.models[name].tiers.get(tier)
+            plan = compile_plan(net, executor_policy="auto", batch=tier,
+                                device=cuda)
+            for k, n in plan.launches_per_forward().items():
+                want[k] += (1 + (ts.batches if ts else 0)) * n
+    assert got == want
+    assert want["sdk_whole"] + want["sdk_window"] > 0
+    assert want["tetris_matmul"] > 0 and want["flash_attention"] > 0
+
+
+@pytest.mark.cuda
+def test_execute_plan_constants_bitwise(cuda):
+    """cnn8 under the mapped executor on the card: the constants-fed
+    forward is bitwise the forward without them, at two tiers sharing
+    one handle."""
+    from repro_torch.exec import compile_plan, execute_plan, prepare_constants
+    from repro_torch.launch import serve_cnn
+    net = _cnn8_512()
+    ks, xh = serve_cnn.serving_inputs(net, 4, 0, cuda)
+    c = None
+    for tier in (2, 4):
+        plan = compile_plan(net, executor_policy="mapped", batch=tier,
+                            device=cuda)
+        c = c or prepare_constants(plan, ks)
+        x = torch.as_tensor(xh[:tier], device=cuda)
+        assert torch.equal(execute_plan(plan, ks, x, constants=c),
+                           execute_plan(plan, ks, x))

@@ -46,7 +46,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.ops, repro_torch.kernels.ref, "
             "repro_torch.kernels.ssd_chunk, repro_torch.kernels.im2win_conv, "
             "repro_torch.optim, repro_torch.data, repro_torch.cnn.models, "
-            "repro_torch.cnn.train, repro_torch.launch.train\n"
+            "repro_torch.cnn.train, repro_torch.launch.train, "
+            "repro_torch.launch.fleet, repro_torch.launch.replica, "
+            "repro_torch.exec.constants, repro_torch.runtime\n"
             "from repro_torch.configs import get_config\n"
             "get_config('stablelm_1_6b'); get_config('whisper_base')\n"
             "get_config('mamba2_130m').param_count()\n"
@@ -85,7 +87,13 @@ def test_entry_points_need_a_card(monkeypatch):
                  lambda: params_from_numpy({"w": np.zeros(2)}),
                  lambda: train_plan(net, steps=1, batch=2),
                  lambda: train_cnn(cnn8_config(), steps=1),
-                 lambda: train.main(["--plan-net", "cnn8", "--steps", "1"])):
+                 lambda: train.main(["--plan-net", "cnn8", "--steps", "1"]),
+                 lambda: serve_cnn.serve_dynamic(net, [(0.0, 1)],
+                                                 max_batch=2,
+                                                 max_delay_ms=1.0),
+                 lambda: serve_cnn.main(["--max-delay-ms", "1"]),
+                 lambda: serve_cnn.main(["--fleet", "cnn8"]),
+                 lambda: serve_cnn.main(["--replicas", "1"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
