@@ -135,10 +135,31 @@ Phases, each of which raises on failure (exit code != 0):
        ``--kill-worker 1``: every request served exactly once (with the
        kill one death and a re-queue), each worker's start-up ms, table
        builds and disk hits;
-16. a ``{"kernels": [...]}`` line: per kernel its launches, error, time
+16. the measured-feedback autotuner (``repro_torch.tune``), each search
+    with every launch count at 0 just before and read just after, its
+    sdk launches held to the sum over its trials of (rounds + warm-up) x
+    the candidate plan's launches a forward:
+    a) ``autotune`` of cnn8 at the served width (512x512, batch 8), the
+       fixed profile, the default budget, over lookahead 1 and the sdk
+       block modes auto / whole / window, twice with ``force=True``: the
+       shortlist, each stage's medians, the winner against the baseline
+       (medians, speedup, rounds, measured steps, seconds), whether the
+       two winners agree; each winner's plan forward against
+       ``execute_oracle``;
+    b) the ragged profile on cnn8 (64 backlogged requests of 1-4 rows,
+       max delay 2 ms, tiers 1/2/4/8 or the top tier alone,
+       ``SMOKE_BUDGET``): every measured drain serves every request once,
+       its launches those of the tier plans over the served batches;
+    c) Inception's layer set through the ``execute_layerwise`` runner
+       (``SMOKE_BUDGET``);
+    d) ``python -m repro_torch.launch.serve_cnn --net cnn8 --batch 8
+       --autotune --cache-dir D`` in two fresh processes: the first
+       searches, the second reports ``[cache]`` with 0 table builds;
+       then ``--policy tuned`` serves the winner's executors and block;
+17. a ``{"kernels": [...]}`` line: per kernel its launches, error, time
     at its path's shapes, the plain version's time, the least time the
     card could take (its bound) and the library call's time (and, for
-    the kernels phase 15 serves, its launches there);
+    the kernels phases 15 and 16 run, their launches there);
 
 then the card line and, last, ``{"ok": true, "device": {...}}``.  The
 script needs the checkout beside it (``src/``) and a CUDA device.
@@ -150,6 +171,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -1995,6 +2017,277 @@ def serving_phase(cnn8, dev, card: str) -> dict:
     return {k: {run: n[k] for run, n in got.items()} for k in SERVED_KERNELS}
 
 
+#: phase 16, the autotuner: cnn8 at the served width and batch, over the
+#: choices the card really has (lookahead is inert in the port, so one
+#: value); the ragged profile's requests (64 of 1-4 rows, backlogged)
+TUNE_LOOKAHEADS, TUNE_BLOCKS = (1,), ("auto", "whole", "window")
+TUNE_REQUESTS, TUNE_MAX_ROWS, TUNE_DELAY_MS = 64, 4, 2.0
+TUNE_LINE = re.compile(r"^autotune: .*\[(cache|search \((\d+) measured "
+                       r"steps\))\]$", re.M)
+
+
+def search_launches(net, res, budget, batch: int, dev) -> dict:
+    """The launches a fixed-profile search makes: each trial's rounds
+    plus its warm-up, times its candidate plan's launches a forward."""
+    from repro_torch.exec import compile_plan
+    from repro_torch.tune import search
+    chained = search._chains(net)
+    total = dict.fromkeys(SERVED_KERNELS, 0)
+    for t in res.trials:
+        c = t.candidate
+        plan = compile_plan(net, executor_policy=c.policy, batch=batch,
+                            chained=chained, lookahead=c.lookahead,
+                            block=c.block, vmem_budget=c.vmem_budget,
+                            remat=c.remat, device=dev)
+        for k, n in plan.launches_per_forward().items():
+            total[k] += (t.rounds + budget.warmup) * n
+    return total
+
+
+def check_search(label: str, want: dict) -> dict:
+    """The launches counted since the last reset against ``want``; only
+    the served kernels may have launched."""
+    counts = launch_counts()
+    got = {k: counts[k] for k in SERVED_KERNELS}
+    print(f"[tune] {label}: launches {got}, predicted from the candidate "
+          f"plans {want}")
+    if got != want or any(counts[k] for k in counts
+                          if k not in SERVED_KERNELS):
+        raise AssertionError(f"{label}: the search's launches {counts} "
+                             f"differ from its candidate plans' {want}")
+    return got
+
+
+def cand_text(c) -> str:
+    """A candidate with its per-layer executors spelt out (``describe``
+    gives only their set)."""
+    rest = c.describe().split(" ", 1)[1]
+    return f"[{','.join(e[:3] for e in c.policy)}] {rest}"
+
+
+def print_search(label: str, net, res, space, budget, seconds: float,
+                 dev, card: str) -> None:
+    """The shortlist, each stage's medians and the winner against the
+    baseline."""
+    from repro_torch.tune import baseline_candidate, shortlist
+    cfg = res.config
+    base = baseline_candidate(net, batch=BATCH, device=dev)
+    short = shortlist(net, space, budget.shortlist, baseline=base)
+    print(f"[tune] {label}: space {len(space)} candidates, shortlist "
+          f"{len(short)}: " + "; ".join(cand_text(c) for c in short))
+    for r in sorted({t.rounds for t in res.trials}):
+        print(f"[tune] {label} stage of {r} rounds: " + "; ".join(
+            f"{cand_text(t.candidate)} {t.median_s * 1e3:.4f} ms"
+            for t in res.trials if t.rounds == r))
+    print(f"[tune] {label}: winner {cand_text(cfg.candidate)} "
+          f"{cfg.median_s * 1e3:.4f} ms vs baseline {cand_text(base)} "
+          f"{cfg.baseline_s * 1e3:.4f} ms, speedup {cfg.speedup:.4f}, "
+          f"{cfg.rounds} final rounds, {res.measurements} measured steps, "
+          f"search {seconds:.3f} s, fleet {cfg.fleet} on {card}")
+
+
+def winner_forward(label: str, net, cand, batch: int, dev) -> None:
+    """The winner's plan forward against ``execute_oracle``."""
+    import torch
+    from repro_torch.exec import compile_plan, execute_oracle, execute_plan
+    from repro_torch.launch import serve_cnn
+    plan = compile_plan(net, executor_policy=cand.policy, batch=batch,
+                        lookahead=cand.lookahead, block=cand.block,
+                        vmem_budget=cand.vmem_budget, device=dev)
+    ks, xh = serve_cnn.serving_inputs(net, batch, SEED, dev)
+    x = torch.as_tensor(xh, device=dev)
+    y = execute_plan(plan, ks, x)
+    r = execute_oracle(plan, ks, x)
+    torch.cuda.synchronize()
+    err, rel, scale = max_err(y, r)
+    print(f"[tune] {label}: winner's forward ({'/'.join(plan.executors)}) "
+          f"vs the oracle max_abs_err={err:.3e} rel={rel:.3e} (tol "
+          f"{FORWARD_RTOL:g} of max|y|={scale:.3f})")
+    if not (bool(torch.isfinite(y).all()) and rel <= FORWARD_RTOL):
+        raise AssertionError(f"{label}: the winner's forward disagrees with "
+                             f"the oracle")
+
+
+def tune_fixed(cnn8, dev, card: str) -> dict:
+    """Phase 16a: two forced fixed-profile searches of cnn8 at batch 8
+    over the sdk block modes, with the default budget."""
+    from repro_torch import tune
+    space = tune.enumerate_space(cnn8, batch=BATCH, device=dev,
+                                 lookaheads=TUNE_LOOKAHEADS,
+                                 blocks=TUNE_BLOCKS)
+    budget = tune.TuneBudget()
+    winners, got = [], {}
+    for run in (1, 2):
+        reset_all_counts()
+        t0 = time.perf_counter()
+        res = tune.autotune(cnn8, batch=BATCH, device=dev, space=space,
+                            budget=budget, seed=SEED, force=True)
+        seconds = time.perf_counter() - t0
+        label = f"cnn8 fixed batch {BATCH}, search {run}"
+        got = check_search(label, search_launches(cnn8, res, budget, BATCH,
+                                                  dev))
+        print_search(label, cnn8, res, space, budget, seconds, dev, card)
+        if res.config.median_s > res.config.baseline_s:
+            raise AssertionError(f"{label}: the winner lost to the baseline "
+                                 f"in its own rounds")
+        winner_forward(label, cnn8, res.config.candidate, BATCH, dev)
+        winners.append(res.config.candidate)
+    print(f"[tune] cnn8 fixed: the two searches' winners agree: "
+          f"{winners[0] == winners[1]} ({cand_text(winners[0])} / "
+          f"{cand_text(winners[1])})")
+    return got
+
+
+def tune_ragged(cnn8, dev, card: str) -> dict:
+    """Phase 16b: the ragged profile on cnn8 — every measured step one
+    backlogged serve_dynamic drain; each drain must serve every request
+    once, and the launches equal the tier plans' over its batches."""
+    from repro_torch import tune
+    from repro_torch.exec import compile_plan
+    from repro_torch.launch import serve_cnn
+    reqs = serve_cnn.poisson_arrivals(TUNE_REQUESTS, 0.0, TUNE_MAX_ROWS,
+                                      seed=SEED)
+    sizes = tuple(r for _, r in reqs)
+    drains = []
+    serve_dynamic = serve_cnn.serve_dynamic
+
+    def recording(net, requests, **kw):     # the runner's own call
+        s = serve_dynamic(net, requests, **kw)
+        drains.append((s, kw))
+        return s
+    reset_all_counts()
+    serve_cnn.serve_dynamic = recording
+    try:
+        t0 = time.perf_counter()
+        res = tune.autotune(cnn8, batch=BATCH, device=dev, ragged=sizes,
+                            max_delay_ms=TUNE_DELAY_MS,
+                            budget=tune.SMOKE_BUDGET, seed=SEED, force=True)
+        seconds = time.perf_counter() - t0
+    finally:
+        serve_cnn.serve_dynamic = serve_dynamic
+    want = dict.fromkeys(SERVED_KERNELS, 0)
+    for s, kw in drains:
+        if s.request_images != sum(sizes):
+            raise AssertionError(f"a ragged drain served {s.request_images} "
+                                 f"of {sum(sizes)} request rows")
+        for t, ts in s.tiers.items():
+            plan = compile_plan(cnn8, executor_policy=kw["policy"], batch=t,
+                                lookahead=kw["lookahead"], block=kw["block"],
+                                vmem_budget=kw["vmem_budget"], device=dev)
+            for k, n in plan.launches_per_forward().items():
+                want[k] += ts.batches * n
+    if len(drains) != res.measurements:
+        raise AssertionError(f"{len(drains)} drains for {res.measurements} "
+                             f"measured steps")
+    label = (f"cnn8 ragged ({TUNE_REQUESTS} backlogged requests of 1-"
+             f"{TUNE_MAX_ROWS} rows, max batch {BATCH})")
+    got = check_search(label, want)
+    print(f"[tune] {label}: {len(drains)} drains, each served all "
+          f"{sum(sizes)} request rows once")
+    print_search(label, cnn8, res, tune.enumerate_space(
+        cnn8, batch=BATCH, device=dev, tiers_options=(None, (BATCH,))),
+        tune.SMOKE_BUDGET, seconds, dev, card)
+    winner_forward(label, cnn8, res.config.candidate, BATCH, dev)
+    return got
+
+
+def tune_layer_set(incep, dev, card: str) -> dict:
+    """Phase 16c: Inception's layer set through the execute_layerwise
+    runner."""
+    from repro_torch import tune
+    from repro_torch.tune import search
+    if search._chains(incep):
+        raise AssertionError("Inception's layer set unexpectedly chains")
+    reset_all_counts()
+    t0 = time.perf_counter()
+    res = tune.autotune(incep, batch=BATCH, device=dev,
+                        budget=tune.SMOKE_BUDGET, seed=SEED, force=True)
+    seconds = time.perf_counter() - t0
+    label = f"inception layer set (layerwise) batch {BATCH}"
+    got = check_search(label, search_launches(incep, res, tune.SMOKE_BUDGET,
+                                              BATCH, dev))
+    print_search(label, incep, res, tune.enumerate_space(
+        incep, batch=BATCH, device=dev), tune.SMOKE_BUDGET, seconds, dev,
+        card)
+    return got
+
+
+def tune_cli(cnn8, dev, card: str) -> None:
+    """Phase 16d: ``serve_cnn --autotune`` in two fresh processes on one
+    cache directory (the second measures nothing and builds no search
+    table), then ``--policy tuned`` serving the persisted winner."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch import tune
+    from repro_torch.core import memo
+    from repro_torch.launch import serve_cnn
+    cache = tempfile.mkdtemp(prefix="chip-smoke-tune-")
+    args = ["--net", "cnn8", "--batch", str(BATCH), "--seed", str(SEED),
+            "--cache-dir", cache]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    try:
+        outs = []
+        for run in (1, 2):
+            t0 = time.perf_counter()
+            out = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.serve_cnn",
+                 *args, "--autotune"], env=env, check=True,
+                capture_output=True, text=True, timeout=300).stdout
+            wall = time.perf_counter() - t0
+            line = TUNE_LINE.search(out)
+            builds = re.search(r"table_builds=(\d+)", out)
+            if line is None or builds is None:
+                raise AssertionError(f"--autotune run {run} printed no "
+                                     f"autotune line:\n{out}")
+            print(f"[tune] serve_cnn --autotune process {run} ({wall:.3f} s"
+                  f" with start-up): {line.group(0)}; table_builds="
+                  f"{builds.group(1)}")
+            print("\n".join(f"[tune]   {ln}" for ln in out.splitlines()
+                            if ln.startswith(("serve/", "device="))))
+            outs.append((line, int(builds.group(1))))
+        (first, _), (second, builds2) = outs
+        if first.group(1) == "cache" or int(first.group(2)) == 0:
+            raise AssertionError("the first --autotune process measured "
+                                 "nothing")
+        if second.group(1) != "cache" or builds2 != 0:
+            raise AssertionError("the second --autotune process did not "
+                                 "load the winner from the cache")
+        memo.set_disk_cache(cache)
+        memo.clear()
+        cfg = tune.tuned_config(cnn8, batch=BATCH, device=dev)
+        if cfg is None:
+            raise AssertionError("no winner persisted for the card's fleet")
+        s = serve_cnn.main(args + ["--policy", "tuned", "--steps", "5"])
+        blocks = {lp.block for lp in s.plan.layers}
+        print(f"[tune] --policy tuned: executors {s.plan.executors}, block "
+              f"{blocks}, the winner {cand_text(cfg.candidate)}; "
+              f"{s.s_per_batch * 1e3:.4f} ms/batch on {card}")
+        if s.plan.executors != cfg.candidate.policy or \
+                blocks != {cfg.candidate.block}:
+            raise AssertionError("--policy tuned did not serve the winner")
+    finally:
+        memo.set_disk_cache(None)
+        memo.clear()
+        shutil.rmtree(cache, ignore_errors=True)
+
+
+def tune_phase(cnn8, incep, dev, card: str) -> dict:
+    """Phase 16.  Returns {kernel: {search: launches}} for the kernels
+    line."""
+    from repro_torch.core import memo
+    t0 = time.perf_counter()
+    memo.clear()
+    got = {"fixed": tune_fixed(cnn8, dev, card),
+           "ragged": tune_ragged(cnn8, dev, card),
+           "inception": tune_layer_set(incep, dev, card)}
+    memo.clear()
+    tune_cli(cnn8, dev, card)
+    print(f"[tune] phase 16 in {time.perf_counter() - t0:.3f} s")
+    return {k: {run: n[k] for run, n in got.items()}
+            for k in ("sdk_whole", "sdk_window")}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2225,9 +2518,13 @@ def main() -> int:
     table2_phase(dev, card)
     # -- 15. arrival-driven serving: dynamic, fleet, replicas ------------
     served = serving_phase(cnn8, dev, card)
+    # -- 16. the autotuner ------------------------------------------------
+    tuned = tune_phase(cnn8, incep, dev, card)
     for row in rows:
         if row["name"] in served:
             row["serving_launches"] = served[row["name"]]
+        if row["name"] in tuned:
+            row["tune_launches"] = tuned[row["name"]]
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

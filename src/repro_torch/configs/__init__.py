@@ -2,11 +2,12 @@
 returns the full ArchConfig; ``get_config(arch, smoke=True)`` the reduced
 same-family config the CPU tests use.
 
-Only the configs a ported path serves have their module here
+The paper's four CNN benchmarks (:data:`CNN_IDS`) are here in full: each
+returns ``{"layers", "array"}`` as the JAX registry's does.  Of
+:data:`ARCH_IDS` only the configs a ported path serves have their module
 (:data:`PORTED`): the transformer lowering serves stablelm-1.6b and the
 whisper-base encoder, and ``launch/serve.py`` serves mamba2-130m.  The
-others of :data:`ARCH_IDS` raise until a slice needs them (ROADMAP.md
-queue 1)."""
+others raise until a slice needs them (ROADMAP.md queue 1)."""
 from __future__ import annotations
 
 import importlib
@@ -24,6 +25,8 @@ ARCH_IDS = (
     "mamba2_130m",
 )
 
+CNN_IDS = ("cnn8", "inception", "densenet40", "mobilenet")
+
 #: The configs of ARCH_IDS this package has.
 PORTED = ("stablelm_1_6b", "whisper_base", "mamba2_130m")
 
@@ -34,7 +37,7 @@ def canon(arch: str) -> str:
 
 def get_config(arch: str, smoke: bool = False):
     name = canon(arch)
-    if name not in PORTED:
+    if name not in PORTED + CNN_IDS:
         known = "known" if name in ARCH_IDS else "unknown"
         raise ValueError(f"config {arch!r} ({known}) is not ported yet; "
                          f"ported: {PORTED}")

@@ -8,6 +8,7 @@
 # grouped.py    grouped-convolution mapping (Alg 1)
 # macro_grid.py macro-configuration search (Alg 2)
 # mapper.py     top-level dispatch
+# simulator.py  NeuroSim-style latency/energy/area/EDAP model
 # memo.py       search / plan caches (disk keys carry this package's name)
 # networks.py   benchmark conv stacks (CNN8, Inception, DenseNet40, MobileNet)
 from .types import (ArrayConfig, ConvLayerSpec, GlueSpec, LayerMapping,

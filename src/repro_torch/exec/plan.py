@@ -36,8 +36,11 @@ dispatch with no inter-layer glue (``GlueSpec(kind="layerwise")``), for
 callers that own the plumbing between layers (`cnn.models.apply_cnn`
 through `exec.run.apply_layer`); `execute_plan` refuses it.
 
-Not ported yet: device meshes (``mesh=None`` only) and the ``"tuned"``
-policy (the autotuner).
+``executor_policy="tuned"`` serves the autotuner's persisted winner for
+(net, the plan device's fleet, batch) — `repro_torch.tune` — and falls
+back to ``"auto"`` when nothing was tuned.
+
+Not ported yet: device meshes (``mesh=None`` only).
 """
 from __future__ import annotations
 
@@ -219,9 +222,6 @@ def _auto_executor(mapping, *, backend: str) -> str:
 
 def _resolve_policy(policy: PolicyLike, net: NetworkMapping, *,
                     backend: str) -> Tuple[str, ...]:
-    if policy == "tuned":
-        raise ValueError("executor_policy='tuned' needs the autotuner, "
-                         "which is not ported yet")
     if callable(policy):
         per_layer = [policy(m) for m in net.layers]
     elif isinstance(policy, str):
@@ -455,8 +455,11 @@ def compile_plan(net: NetworkMapping, *,
     (default: the card; ``device="cpu"`` plans for the plain versions).
 
     ``executor_policy`` — ``"auto"`` (per-layer heuristic on the plan's
-    device type, see `_auto_executor`), one executor name for every
-    layer, a per-layer sequence, or a callable ``LayerMapping -> name``.
+    device type, see `_auto_executor`), ``"tuned"`` (the autotuner's
+    persisted winner for this net, the plan device's fleet and this
+    batch — see `repro_torch.tune`; falls back to ``"auto"`` when
+    nothing has been tuned), one executor name for every layer, a
+    per-layer sequence, or a callable ``LayerMapping -> name``.
     ``chained=False`` compiles a layerwise plan (module docstring).
     ``lookahead`` (default 1) stays in the IR and is inert here;
     ``vmem_budget`` (default: ``REPRO_SDK_VMEM_BUDGET``, else 8 MiB)
@@ -464,6 +467,10 @@ def compile_plan(net: NetworkMapping, *,
     ``remat`` asks the segment pass for rematerialization boundaries:
     ``None``/``"off"``, ``"auto"``, an ``int`` peak-byte budget, or an
     explicit sequence of boundary layer indices.
+
+    With ``executor_policy="tuned"`` any of ``lookahead`` / ``block`` /
+    ``vmem_budget`` / ``remat`` left unset take the tuned values (pass
+    ``remat="off"`` to force remat off under a tuned policy).
 
     Every layer's executed schedule is asserted equal to its
     ``LayerMapping.cycles`` here, and a mis-chained network raises the
@@ -473,6 +480,23 @@ def compile_plan(net: NetworkMapping, *,
     if not net.layers:
         raise ValueError(f"{net.name}: cannot plan an empty network")
     dev = resolve_device(device).type
+    if executor_policy == "tuned":
+        # lazy import: repro_torch.tune compiles plans, so the dependency
+        # must point tune -> exec at module scope, not both ways
+        from ..tune import tuned_config
+        cfg = tuned_config(net, batch=batch, device=dev)
+        if cfg is None:
+            executor_policy = "auto"
+        else:
+            executor_policy = cfg.candidate.policy
+            if lookahead is None:
+                lookahead = cfg.candidate.lookahead
+            if block is None:
+                block = cfg.candidate.block
+            if vmem_budget is None:
+                vmem_budget = cfg.candidate.vmem_budget
+            if remat is None:
+                remat = cfg.candidate.remat
     if lookahead is None:
         lookahead = 1
     if lookahead < 0:

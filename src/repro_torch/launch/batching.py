@@ -251,7 +251,8 @@ class PlanLadder:
     gives the per-key evidence."""
 
     def __init__(self, net_mapping, tiers: Sequence[int], *,
-                 policy="mapped", block: Optional[str] = None,
+                 policy="mapped", lookahead: Optional[int] = None,
+                 block: Optional[str] = None,
                  vmem_budget: Optional[int] = None,
                  device: DeviceLike = None):
         from ..device import resolve_device
@@ -260,11 +261,12 @@ class PlanLadder:
         if not self.tiers:
             raise ValueError("ladder needs at least one tier")
         self.device = resolve_device(device)
-        # policy is any compile_plan PolicyLike (a name, "auto", a
-        # per-layer tuple); block / vmem_budget reach the sdk layers
+        # policy is any compile_plan PolicyLike (a name, "auto"/"tuned",
+        # a per-layer tuple); lookahead / block / vmem_budget pass
+        # through unset (None) so "tuned" can fill them per plan
         self.plans = {t: compile_plan(net_mapping, executor_policy=policy,
-                                      batch=t, block=block,
-                                      vmem_budget=vmem_budget,
+                                      batch=t, lookahead=lookahead,
+                                      block=block, vmem_budget=vmem_budget,
                                       device=self.device)
                       for t in self.tiers}
 

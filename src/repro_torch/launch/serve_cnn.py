@@ -47,9 +47,17 @@ the JAX package's order, so both packages serve the same weights and
 images bit for bit.  Each mode prints the JAX package's CSV rows
 (``name,us_per_call,derived``: ``serve/...``, ``serve_dyn/...``,
 ``serve_fleet/...``, ``serve_replica/...``) plus a human-readable
-summary.  ``--no-donate`` is accepted and changes nothing (torch has no
-buffer donation).  Not ported: ``--autotune`` (the autotuner),
-``--no-mesh`` and ``--worker-devices`` (the port has no mesh).
+summary.  ``--autotune`` runs the measured-feedback autotuner
+(`repro_torch.tune`) for this net, the device's fleet and the batch
+profile first — instant with a warm ``--cache-dir`` — then serves the
+winner's full config; ``--policy tuned`` serves a persisted winner
+without searching (the ``auto`` executors when nothing was tuned), in
+every mode.  ``--no-donate`` is accepted and changes nothing (torch has
+no buffer donation).  Not ported: ``--no-mesh`` and
+``--worker-devices`` (the port has no mesh).
+
+    python -m repro_torch.launch.serve_cnn --net cnn8 --batch 8 \
+        --autotune --cache-dir /tmp/mapping-cache
 """
 from __future__ import annotations
 
@@ -138,15 +146,17 @@ class ServeStats:
 
 
 def serve(net_mapping, batch: int, steps: int, warmup: int = 2,
-          seed: int = 0, policy="mapped", block: Optional[str] = None,
+          seed: int = 0, policy="mapped", lookahead: Optional[int] = None,
+          block: Optional[str] = None,
           vmem_budget: Optional[int] = None,
           device: DeviceLike = None, inputs=None) -> ServeStats:
     """Steady-state batched forward passes through a compiled plan on
     ``device`` (default: the card).
 
     ``warmup`` is honored exactly, including 0; the count actually
-    executed is reported in ``ServeStats.warmup_steps``.  ``block`` and
-    ``vmem_budget`` reach the sdk layers (see `compile_plan`).
+    executed is reported in ``ServeStats.warmup_steps``.  ``lookahead``,
+    ``block`` and ``vmem_budget`` reach the plan (see `compile_plan`;
+    left unset, ``policy="tuned"`` fills them from the winner).
     ``inputs``, where given, must be the result of
     ``serving_inputs(net_mapping, batch, seed, device)`` with the same
     arguments; it is served instead of drawing it again (a full-width
@@ -162,7 +172,8 @@ def serve(net_mapping, batch: int, steps: int, warmup: int = 2,
         raise ValueError(f"steps must be >= 1, got {steps}")
     dev = resolve_device(device)
     plan = compile_plan(net_mapping, executor_policy=policy, batch=batch,
-                        device=dev, block=block, vmem_budget=vmem_budget)
+                        device=dev, lookahead=lookahead, block=block,
+                        vmem_budget=vmem_budget)
     ks, x = inputs if inputs is not None else serving_inputs(
         net_mapping, batch, seed, dev)
     ring = batching.InputRing(x, device=dev)
@@ -211,6 +222,9 @@ def serve_dynamic(net_mapping, requests: Sequence[Tuple[float, int]], *,
                   tiers: Optional[Sequence[int]] = None,
                   policy="mapped", warmup: int = 1, seed: int = 0,
                   adaptive_delay: bool = False,
+                  lookahead: Optional[int] = None,
+                  block: Optional[str] = None,
+                  vmem_budget: Optional[int] = None,
                   device: DeviceLike = None,
                   clock=time.perf_counter,
                   sleep=time.sleep) -> batching.DynamicServeStats:
@@ -231,7 +245,9 @@ def serve_dynamic(net_mapping, requests: Sequence[Tuple[float, int]], *,
     ``warmup`` forwards per tier run before the clock starts (0 honored:
     the kernels' first load then lands in the measurement).
     ``adaptive_delay`` swaps the fixed coalescing delay for the
-    load-proportional `batching.AdaptiveDelay` policy."""
+    load-proportional `batching.AdaptiveDelay` policy.  ``lookahead``,
+    ``block`` and ``vmem_budget`` reach every tier's plan (unset, a
+    ``"tuned"`` policy fills them per tier)."""
     if warmup < 0:
         raise ValueError(f"warmup must be >= 0, got {warmup}")
     if max_delay_ms < 0:
@@ -244,7 +260,8 @@ def serve_dynamic(net_mapping, requests: Sequence[Tuple[float, int]], *,
     tiers = batching.batch_tiers(max_batch) if tiers is None \
         else tuple(tiers)
     ladder = batching.PlanLadder(net_mapping, tiers, policy=policy,
-                                 device=device)
+                                 lookahead=lookahead, block=block,
+                                 vmem_budget=vmem_budget, device=device)
     if ladder.max_batch < max_batch:
         raise ValueError(
             f"tiers {ladder.tiers} do not cover max_batch={max_batch} — "
@@ -531,8 +548,20 @@ def main(argv=None):
                     help="untimed warmup forwards; 0 is honored (timing "
                          "then includes the kernels' first build)")
     ap.add_argument("--policy", default="mapped",
-                    choices=("mapped", "reference", "sdk", "auto"),
-                    help="plan executor policy (per-layer for 'auto')")
+                    choices=("mapped", "reference", "sdk", "auto",
+                             "tuned"),
+                    help="plan executor policy (per-layer for 'auto'; "
+                         "'tuned' loads the autotuner's persisted "
+                         "winner, falling back to 'auto')")
+    ap.add_argument("--autotune", action="store_true",
+                    help="run the measured-feedback autotuner "
+                         "(repro_torch.tune) for this net / device fleet "
+                         "/ batch profile first — instant with a warm "
+                         "--cache-dir — then serve the winner's full "
+                         "config (policy, lookahead, sdk knobs, tiers); "
+                         "fixed and dynamic modes — --fleet and "
+                         "--replicas serve a persisted winner through "
+                         "--policy tuned")
     ap.add_argument("--cache-dir", default=None,
                     help="persistent mapping/plan cache directory "
                          "(default: $REPRO_MAPPING_CACHE)")
@@ -627,22 +656,50 @@ def main(argv=None):
         max_request = args.max_request or min(4, max_batch)
         reqs = poisson_arrivals(args.requests, args.arrival_rate,
                                 max_request, seed=args.seed)
+        policy, tiers = args.policy, None
+        lookahead = block = vmem_budget = None
+        if args.autotune:
+            from .. import tune
+            res = tune.autotune(mapping, batch=max_batch, device=dev,
+                                ragged=tuple(r for _, r in reqs),
+                                max_delay_ms=args.max_delay_ms,
+                                seed=args.seed)
+            print(f"autotune: {res.describe()}")
+            cand = res.config.candidate
+            policy, lookahead = cand.policy, cand.lookahead
+            block, vmem_budget = cand.block, cand.vmem_budget
+            tiers = tune.resolve_tiers(cand, max_batch)
         s = serve_dynamic(mapping, reqs, max_batch=max_batch,
-                          max_delay_ms=args.max_delay_ms,
-                          policy=args.policy, warmup=args.warmup,
+                          max_delay_ms=args.max_delay_ms, tiers=tiers,
+                          policy=policy, warmup=args.warmup,
                           seed=args.seed,
-                          adaptive_delay=args.adaptive_delay, device=dev)
+                          adaptive_delay=args.adaptive_delay,
+                          lookahead=lookahead, block=block,
+                          vmem_budget=vmem_budget, device=dev)
         compiles = sum(compile_counts(net=mapping).values())
         _print_dynamic(args.net, s, tag="none", max_batch=max_batch,
                        max_delay_ms=args.max_delay_ms, compiles=compiles,
                        st=st)
         return s
 
+    policy = args.policy
+    lookahead = block = vmem_budget = None
+    if args.autotune:
+        from .. import tune
+        res = tune.autotune(mapping, batch=args.batch, device=dev,
+                            seed=args.seed)
+        print(f"autotune: {res.describe()}")
+        cand = res.config.candidate
+        policy, lookahead = cand.policy, cand.lookahead
+        block, vmem_budget = cand.block, cand.vmem_budget
     s = serve(mapping, args.batch, args.steps, warmup=args.warmup,
-              seed=args.seed, policy=args.policy, device=dev)
+              seed=args.seed, policy=policy, lookahead=lookahead,
+              block=block, vmem_budget=vmem_budget, device=dev)
     print(s.plan.describe())
+    pol_tag = args.policy if isinstance(policy, str) else \
+        "tuned:" + "/".join(sorted(set(policy)))
     print(f"device={dev} batch={args.batch}: {s.images_per_s:.1f} images/s"
-          f" ({s.s_per_batch*1e3:.3f} ms/batch, executor={args.policy}, "
+          f" ({s.s_per_batch*1e3:.3f} ms/batch, executor={pol_tag}, "
           f"warmup_steps={s.warmup_steps}, donated={s.donated})")
     print(f"serve/{args.net}/b{args.batch},{s.s_per_batch*1e6:.1f},"
           f"images_per_s={s.images_per_s:.1f};"

@@ -10,7 +10,8 @@ blocks held to the launch rule; also through the SSD mixer) and
 im2win_conv (also through the ops surface, with each of its
 kernels, in f32 and bf16); and training: the executors' gradients
 against F.conv2d's, the kernel entry points refusing autograd, and the
-plan trainer on the card against the CPU.  Marked
+plan trainer on the card against the CPU; and a small autotune over
+the sdk block modes.  Marked
 ``cuda``: without a CUDA device each test skips.  On the card:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
@@ -722,3 +723,53 @@ def test_execute_plan_constants_bitwise(cuda):
         x = torch.as_tensor(xh[:tier], device=cuda)
         assert torch.equal(execute_plan(plan, ks, x, constants=c),
                            execute_plan(plan, ks, x))
+
+
+def _tune_launches(net, res, budget, batch, device):
+    """The sdk launches a search makes: every trial's rounds plus its
+    warm-up steps, times its candidate plan's launches a forward."""
+    from repro_torch.exec import compile_plan
+    want = dict.fromkeys(_served_launches(), 0)
+    for t in res.trials:
+        c = t.candidate
+        plan = compile_plan(net, executor_policy=c.policy, batch=batch,
+                            lookahead=c.lookahead, block=c.block,
+                            vmem_budget=c.vmem_budget, device=device)
+        for k, n in plan.launches_per_forward().items():
+            want[k] += (t.rounds + budget.warmup) * n
+    return want
+
+
+@pytest.mark.cuda
+def test_autotune_on_the_card(cuda):
+    """A small search on the card over the sdk block modes (cnn8 at
+    512x512, batch 2, SMOKE_BUDGET): its launches are the candidate
+    plans' over the measured and warm-up steps, the winner's fleet is the
+    card's, and the winner's forward matches the oracle."""
+    from repro_torch import tune
+    from repro_torch.core import memo
+    from repro_torch.exec import compile_plan, execute_oracle, execute_plan
+    from repro_torch.launch import serve_cnn
+    net = _cnn8_512()
+    memo.clear()
+    space = tune.enumerate_space(net, batch=2, device=cuda, lookaheads=(1,),
+                                 blocks=("auto", "whole", "window"))
+    _reset_served()
+    res = tune.autotune(net, batch=2, device=cuda, space=space,
+                        budget=tune.SMOKE_BUDGET, store=False)
+    got = _served_launches()
+    assert got == _tune_launches(net, res, tune.SMOKE_BUDGET, 2, cuda)
+    assert got["sdk_whole"] > 0 and got["sdk_window"] > 0
+    assert res.config.fleet == ("cuda", torch.cuda.device_count())
+    assert res.config.median_s <= res.config.baseline_s
+    c = res.config.candidate
+    plan = compile_plan(net, executor_policy=c.policy, batch=2,
+                        lookahead=c.lookahead, block=c.block,
+                        vmem_budget=c.vmem_budget, device=cuda)
+    ks, xh = serve_cnn.serving_inputs(net, 2, 0, cuda)
+    x = torch.as_tensor(xh, device=cuda)
+    y = execute_plan(plan, ks, x)
+    r = execute_oracle(plan, ks, x)
+    assert torch.isfinite(y).all()
+    assert float((y - r).abs().max()) <= 1e-4 * float(r.abs().max())
+    memo.clear()

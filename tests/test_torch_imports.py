@@ -28,6 +28,11 @@ def _imports(path):
 def test_no_jax_or_reference_imports():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    names = {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
+    assert {"tune/__init__.py", "tune/measure.py", "tune/space.py",
+            "tune/search.py", "tune/report.py", "core/simulator.py",
+            "configs/cnn8.py", "configs/inception.py",
+            "configs/densenet40.py", "configs/mobilenet.py"} <= names
     bad = [(f.relative_to(ROOT), name) for f in files
            for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "repro")]
@@ -48,9 +53,11 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.optim, repro_torch.data, repro_torch.cnn.models, "
             "repro_torch.cnn.train, repro_torch.launch.train, "
             "repro_torch.launch.fleet, repro_torch.launch.replica, "
-            "repro_torch.exec.constants, repro_torch.runtime\n"
-            "from repro_torch.configs import get_config\n"
+            "repro_torch.exec.constants, repro_torch.runtime, "
+            "repro_torch.tune, repro_torch.core.simulator\n"
+            "from repro_torch.configs import CNN_IDS, get_config\n"
             "get_config('stablelm_1_6b'); get_config('whisper_base')\n"
+            "[get_config(c) for c in CNN_IDS]\n"
             "get_config('mamba2_130m').param_count()\n"
             "from repro_torch.kernels import _build\n"
             "assert not _build._loaded, 'a kernel was built at import'\n"
@@ -71,6 +78,7 @@ def test_entry_points_need_a_card(monkeypatch):
     from repro_torch.exec import compile_plan
     from repro_torch.launch import serve, serve_cnn
     from repro_torch.launch.transformer import transformer_mapping
+    from repro_torch.tune import autotune, tuned_config
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     net = map_net("cnn8", networks.cnn8(), ArrayConfig(512, 512),
                   "TetrisG-SDK", groups=(1, 2, 4))
@@ -93,7 +101,13 @@ def test_entry_points_need_a_card(monkeypatch):
                                                  max_delay_ms=1.0),
                  lambda: serve_cnn.main(["--max-delay-ms", "1"]),
                  lambda: serve_cnn.main(["--fleet", "cnn8"]),
-                 lambda: serve_cnn.main(["--replicas", "1"])):
+                 lambda: serve_cnn.main(["--replicas", "1"]),
+                 lambda: serve_cnn.main(["--steps", "1", "--autotune"]),
+                 lambda: serve_cnn.main(["--steps", "1", "--policy",
+                                         "tuned"]),
+                 lambda: autotune(net, batch=2),
+                 lambda: tuned_config(net, batch=2),
+                 lambda: compile_plan(net, executor_policy="tuned")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")

@@ -20,6 +20,7 @@ from repro.exec import compile_plan as j_compile                # noqa: E402
 from repro.exec import execute_plan as j_execute                # noqa: E402
 from repro.launch import serve_cnn as j_serve                   # noqa: E402
 from repro_torch.cnn import kernels_from_numpy                 # noqa: E402
+from repro_torch.core import memo                               # noqa: E402
 from repro_torch.exec import (compile_plan, execute_looped,     # noqa: E402
                               execute_oracle, execute_plan)
 from repro_torch.exec.plan import _auto_executor                # noqa: E402
@@ -104,8 +105,8 @@ def test_densenet_concat_chain_reference():
 
 def test_compile_plan_guards():
     """Compile-time errors: a non-chain, sdk on a mapping that owes a
-    sub-grid, unknown and not-yet-ported policies, tensors on the wrong
-    device or batch at execute time."""
+    sub-grid, unknown policies, tensors on the wrong device or batch at
+    execute time; "tuned" with nothing tuned is the auto policy."""
     _, inc = map_net_both("inception",
                           lambda core: core.networks.inception(), (64, 64),
                           "TetrisG-SDK", (2, 2), groups=(1, 2))
@@ -115,10 +116,14 @@ def test_compile_plan_guards():
                            (64, 64), "TetrisG-SDK", (2, 2), groups=(1,))
     with pytest.raises(ValueError, match="cannot realize sub-grid"):
         compile_plan(tnet, executor_policy="sdk", device="cpu")
-    for bad, msg in (("warp", "unknown executor"), ("tuned", "autotuner"),
+    for bad, msg in (("warp", "unknown executor"),
                      (["mapped"], "lists 1 executors")):
         with pytest.raises(ValueError, match=msg):
             compile_plan(tnet, executor_policy=bad, device="cpu")
+    memo.clear()
+    assert compile_plan(tnet, executor_policy="tuned", device="cpu"
+                        ).executors == compile_plan(
+        tnet, executor_policy="auto", device="cpu").executors
     plan = compile_plan(tnet, executor_policy="mapped", batch=2,
                         device="cpu")
     ks, x = net_data(tnet, np.random.RandomState(23), batch=2)
