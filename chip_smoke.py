@@ -71,10 +71,11 @@ Phases, each of which raises on failure (exit code != 0):
     blocks, weights drawn on the card from the seed) with batch 4, prompt
     2048, gen 32, every count at 0 just before and read just after:
     ``ssd_chunk`` launches == 24 per prefill (its blocks 24 times
-    ``ssd_launch_dims``') and none from decode; prefill
-    and decode rates, each the mean of several calls after the warm-up
-    ``generate``; the prefill's last-position logits against the same
-    prefill through the plain versions; one prefill under
+    ``ssd_launch_dims``') and none from decode; the prefill's median
+    ms over 5 calls after the warm-up ``generate`` and decode's median ms
+    a token (phase 17's statistic, one helper), the peak allocation; the
+    prefill's last-position logits against the same prefill through the
+    plain versions; one prefill and one decode step under
     ``torch.profiler``;
 12. the ops surface — ``ops.matmul``, ``ops.gmm``, ``ops.attention`` and
     ``ops.conv2d`` at a path shape, in f32 and in bf16, each launching its
@@ -156,7 +157,29 @@ Phases, each of which raises on failure (exit code != 0):
        --autotune --cache-dir D`` in two fresh processes: the first
        searches, the second reports ``[cache]`` with 0 table builds;
        then ``--policy tuned`` serves the winner's executors and block;
-17. a ``{"kernels": [...]}`` line: per kernel its launches, error, time
+17. the decoder attention family (``mixer="gqa"``; plain PyTorch ops,
+    as the JAX package's are plain ``jnp``), with every launch count at 0
+    at its start and read at its end, when each must still be 0:
+    a) stablelm-1.6b at full width and depth (24 blocks, d 2048, 32
+       heads, LayerNorm, 16 rotary dims), weights drawn on the card from
+       the seed (their count == ``param_count``): ``generate`` at batch
+       4, prompt 2048 (four q blocks of 512), gen 32; the prefill's median
+       ms over 3 calls, decode's median ms a token, tokens/s, the peak
+       allocation, and one prefill and one decode step under
+       ``torch.profiler`` (the busy share);
+    b) on the same model in f32 compute (TF32 off): at batch 1, prompt
+       512, the decode logits at position 512 within 1e-3 of max|logit|
+       of the train forward's there, with the same argmax; the bf16 gap
+       printed beside it;
+    c) stablelm-1.6b at full width cut to 2 blocks, weights drawn on the
+       CPU and copied to the card: in f32 compute the card's train logits
+       at batch 1, prompt 64 within 1e-4 of max|logit| of the CPU's;
+    d) qwen1.5-32b (64 -> 2 units), deepseek-67b (95 -> 2) and
+       mistral-large-123b (88 -> 2) at full width (GQA groups 1, 8 and
+       12, head_dim 128, QKV bias), each drawn on the card and freed
+       before the next: ``generate`` at batch 2, prompt 1024 (two q
+       blocks), gen 8 as in a), then b)'s check at that batch and prompt;
+18. a ``{"kernels": [...]}`` line: per kernel its launches, error, time
     at its path's shapes, the plain version's time, the least time the
     card could take (its bound) and the library call's time (and, for
     the kernels phases 15 and 16 run, their launches there);
@@ -213,6 +236,24 @@ MAMBA_PREFILLS = 5
 #: differences through its 24 blocks about as far as bf16 itself moves
 #: the logits from f32, so that comparison is printed beside that floor
 LOGITS_RTOL = 2e-2
+#: phase 17, the decoder attention family: (config, batch, prompt, gen)
+#: of stablelm-1.6b at full width and depth, the prefill calls timed,
+#: and (batch, prompt) of the f32 consistency check
+DECODER = ("stablelm_1_6b", 4, 2048, 32)
+DECODER_PREFILLS = 3
+DECODER_CHECK = (1, 512)
+#: the decode logits at S vs the train forward's at S, f32 compute (TF32
+#: off), relative to max|logit|: the same function, the softmax over the
+#: cache instead of the sequence, summed in another order
+CONSISTENCY_RTOL = 1e-3
+#: stablelm-1.6b cut to 2 blocks, f32 compute: card vs CPU train logits
+CARD_CPU = (2, 1, 64)
+CARD_CPU_RTOL = 1e-4
+#: the three large configs at full width, depth cut to 2 units; (batch,
+#: prompt, gen) of their generate, whose prompt also serves the check
+DECODER_CUTS = ("qwen1_5_32b", "deepseek_67b", "mistral_large_123b")
+CUT_UNITS = 2
+CUT_RUN = (2, 1024, 8)
 #: the transformer path: (config, seq, batch), full width and depth
 TRANSFORMERS = (("stablelm_1_6b", 512, 4), ("whisper_base", 1024, 4))
 TF_WARMUP, TF_STEPS = 1, 20
@@ -996,8 +1037,6 @@ def mamba_phase(dev, card: str) -> int:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ssd_chunk as sc
-    from repro_torch.launch.serve import generate
-    from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import transformer as T
     arch, batch, prompt, gen = MAMBA
     cfg = get_config(arch)
@@ -1016,64 +1055,34 @@ def mamba_phase(dev, card: str) -> int:
                              f"{cfg.param_count()}")
 
     reset_all_counts()
-    t0 = time.perf_counter()
-    out = generate(cfg, params, prompts, gen)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    launches = launch_counts()
-    print(f"[mamba] generate batch {batch} prompt {prompt} gen {gen} "
-          f"(warm-up, builds nothing new): {first_s:.3f} s; launches "
-          f"{launches}")
+    launches, n_pre, n_dec = time_generate(cfg.name, cfg, params, prompts,
+                                           gen, MAMBA_PREFILLS, card,
+                                           "ssd_chunk")
+    print(f"[mamba] launches: {launches} in the warm-up generate, "
+          f"ssd_chunk {n_pre['ssd_chunk']} in the timed prefills, "
+          f"{n_dec['ssd_chunk']} in decode")
     if launches["ssd_chunk"] != cfg.n_layers or any(
             v for k, v in launches.items() if k != "ssd_chunk"):
         raise AssertionError(f"generate launched {launches}, not "
                              f"ssd_chunk x {cfg.n_layers} (one prefill) only")
+    if (n_pre["ssd_chunk"] != cfg.n_layers * MAMBA_PREFILLS
+            or n_dec["ssd_chunk"] != 0):
+        raise AssertionError(f"ssd_chunk launched {n_pre['ssd_chunk']} "
+                             f"times in {MAMBA_PREFILLS} prefills and "
+                             f"{n_dec['ssd_chunk']} in decode")
     m = cfg.ssm
     lay = sc.ssd_launch_dims(batch, prompt, m.n_heads, m.head_dim,
                              m.n_groups, m.d_state, min(m.chunk, prompt),
                              sc.sm_count(dev))
+    n_all = sc.ssd_chunk_cuda.launches
     print(f"[mamba] ssd_chunk blocks launched {sc.ssd_chunk_cuda.blocks} == "
-          f"{cfg.n_layers} x ssd_launch_dims {lay.blocks} ({lay.heads} heads "
-          f"a y block, state_level {lay.state_level}, {lay.smem} B of shared"
-          f" memory): {sc.ssd_chunk_cuda.blocks == cfg.n_layers * lay.blocks}")
-    if sc.ssd_chunk_cuda.blocks != cfg.n_layers * lay.blocks:
+          f"{n_all} launches x ssd_launch_dims {lay.blocks} ({lay.heads} "
+          f"heads a y block, state_level {lay.state_level}, {lay.smem} B of "
+          f"shared memory): "
+          f"{sc.ssd_chunk_cuda.blocks == n_all * lay.blocks}")
+    if sc.ssd_chunk_cuda.blocks != n_all * lay.blocks:
         raise AssertionError("the prefill's ssd_chunk launches ran other "
                              "blocks than ssd_launch_dims gives")
-    if not (out.shape == (batch, prompt + gen)
-            and torch.equal(out[:, :prompt], prompts)
-            and int(out.min()) >= 0 and int(out.max()) < cfg.vocab):
-        raise AssertionError(f"generate returned {tuple(out.shape)} tokens "
-                             f"outside the vocabulary or the prompt")
-
-    prefill = make_prefill_step(cfg, cache_len=prompt + gen)
-    serve = make_serve_step(cfg)
-    before = sc.ssd_chunk_cuda.launches
-    t_pre = []
-    for _ in range(MAMBA_PREFILLS):
-        t0 = time.perf_counter()
-        nxt, cache = prefill(params, {"tokens": prompts})
-        torch.cuda.synchronize()
-        t_pre.append(time.perf_counter() - t0)
-    n_pre = sc.ssd_chunk_cuda.launches - before
-    tok = nxt[:, None]
-    t_dec = []
-    for i in range(gen - 1):
-        t0 = time.perf_counter()
-        tok, cache = serve(params, cache, tok, prompt + i)
-        torch.cuda.synchronize()
-        t_dec.append(time.perf_counter() - t0)
-    n_dec = sc.ssd_chunk_cuda.launches - before - n_pre
-    pre_ms = 1e3 * sum(t_pre) / len(t_pre)
-    dec_ms = 1e3 * sum(t_dec) / len(t_dec)
-    print(f"[mamba] prefill {pre_ms:.4f} ms ({batch * prompt / pre_ms * 1e3:.1f}"
-          f" tokens/s; mean of {len(t_pre)}), decode {dec_ms:.4f} ms/token "
-          f"({batch / dec_ms * 1e3:.1f} tokens/s; mean of {len(t_dec)} "
-          f"steps) on {card}; ssd_chunk launches {n_pre} in the prefills, "
-          f"{n_dec} in decode")
-    if n_pre != cfg.n_layers * MAMBA_PREFILLS or n_dec != 0:
-        raise AssertionError(f"ssd_chunk launched {n_pre} times in "
-                             f"{MAMBA_PREFILLS} prefills and {n_dec} in "
-                             f"decode")
 
     logits = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1100,10 +1109,6 @@ def mamba_phase(dev, card: str) -> int:
             and lk.shape == (batch, 1, cfg.padded_vocab)):
         raise AssertionError("mamba2-130m prefill disagrees with its plain "
                              "version")
-    profile_call("mamba2-130m prefill", lambda: prefill(
-        params, {"tokens": prompts}), pre_ms, "ssd_chunk")
-    profile_call("mamba2-130m decode step", lambda: serve(
-        params, cache, tok, prompt + gen), dec_ms, "ssd_chunk")
     return launches["ssd_chunk"]
 
 
@@ -2288,7 +2293,213 @@ def tune_phase(cnn8, incep, dev, card: str) -> dict:
             for k in ("sdk_whole", "sdk_window")}
 
 
+def cut_depth(cfg, units: int):
+    """``cfg`` at full width with its one stage cut to ``units`` units."""
+    import dataclasses
+    (stage,) = cfg.stages
+    return dataclasses.replace(
+        cfg, stages=(dataclasses.replace(stage, n_units=units),))
+
+
+def time_generate(label: str, cfg, params, prompts, gen: int,
+                  prefills: int, card: str, kernel: str = "") -> tuple:
+    """``generate`` once (the warm-up), then ``prefills`` prefills and
+    gen - 1 decode steps timed (host clock, each ending in a synchronize;
+    medians), the peak allocation over them, and one prefill and one
+    decode step under ``torch.profiler`` (``kernel``: the entries to part
+    out).  Returns the launches of the warm-up, of the timed prefills and
+    of the timed decode steps; the counts are read, never reset."""
+    import statistics
+    import torch
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    batch, prompt = prompts.shape
+
+    def since(before):
+        return {k: v - before[k] for k, v in launch_counts().items()}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = launch_counts()
+    t0 = time.perf_counter()
+    out = generate(cfg, params, prompts, gen)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    first = since(before)
+    if not (out.shape == (batch, prompt + gen)
+            and torch.equal(out[:, :prompt], prompts)
+            and int(out.min()) >= 0 and int(out.max()) < cfg.vocab):
+        raise AssertionError(f"{label}: generate returned {tuple(out.shape)}"
+                             f" tokens outside the vocabulary or the prompt")
+    prefill = make_prefill_step(cfg, cache_len=prompt + gen)
+    serve = make_serve_step(cfg)
+    before = launch_counts()
+    t_pre = []
+    for _ in range(prefills):
+        t0 = time.perf_counter()
+        nxt, cache = prefill(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        t_pre.append(time.perf_counter() - t0)
+    n_pre = since(before)
+    before = launch_counts()
+    tok = nxt[:, None]
+    t_dec = []
+    for i in range(gen - 1):
+        t0 = time.perf_counter()
+        tok, cache = serve(params, cache, tok, prompt + i)
+        torch.cuda.synchronize()
+        t_dec.append(time.perf_counter() - t0)
+    n_dec = since(before)
+    peak = torch.cuda.max_memory_allocated()
+    pre_ms = 1e3 * statistics.median(t_pre)
+    dec_ms = 1e3 * statistics.median(t_dec)
+    print(f"[generate] {label} batch {batch} prompt {prompt} gen {gen}: "
+          f"first call {first_s:.3f} s; prefill {pre_ms:.4f} ms (median of "
+          f"{len(t_pre)}; {batch * prompt / pre_ms * 1e3:.1f} tokens/s), "
+          f"decode {dec_ms:.4f} ms a token (median of {len(t_dec)} steps, "
+          f"{min(t_dec) * 1e3:.4f}-{max(t_dec) * 1e3:.4f}; "
+          f"{batch / dec_ms * 1e3:.1f} tokens/s); peak allocation "
+          f"{peak / 2**30:.3f} GiB; on {card}")
+    # the next step writes at prompt + gen - 1, the cache's last slot
+    profile_call(f"{label} prefill", lambda: prefill(
+        params, {"tokens": prompts}), pre_ms, kernel)
+    profile_call(f"{label} decode step", lambda: serve(
+        params, cache, tok, prompt + gen - 1), dec_ms, kernel)
+    return first, n_pre, n_dec
+
+
+def decoder_prompts(cfg, batch: int, prompt: int, dev):
+    import torch
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    return torch.randint(0, cfg.vocab, (batch, prompt), generator=g,
+                         device=dev)
+
+
+def decoder_consistency(label: str, cfg, params, batch: int, s: int,
+                        dev) -> None:
+    """The JAX package's ``test_prefill_decode_consistency`` on the card:
+    the decode logits at position ``s`` after a prefill of ``s`` tokens
+    against the train forward's at ``s``, gated in f32 compute and
+    printed in bf16 (as served)."""
+    import torch
+    from repro_torch.models import transformer as T
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    toks = torch.randint(0, cfg.vocab, (batch, s + 1), generator=g,
+                         device=dev)
+    gaps = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        with compute_dtype(dtype):
+            full = T.forward(params, cfg, tokens=toks, mode="train")[:, s]
+            _, cache = T.forward(params, cfg, tokens=toks[:, :s],
+                                 mode="prefill", cache_len=s + 8)
+            dl = T.forward(params, cfg, tokens=toks[:, s:], mode="decode",
+                           cache=cache, pos=s)[0][:, 0]
+            del cache
+        err, rel, scale = max_err(dl.float(), full.float())
+        same = bool(torch.equal(dl.float().argmax(-1),
+                                full.float().argmax(-1)))
+        finite = bool(torch.isfinite(dl).all()
+                      and torch.isfinite(full).all())
+        gaps[dtype] = (err, rel, scale, same, finite)
+    err, rel, scale, same, finite = gaps[torch.float32]
+    bf = gaps[torch.bfloat16]
+    print(f"[decoder] {label} prefill {s} + decode vs train forward at "
+          f"position {s}, batch {batch}: f32 compute max_abs_err={err:.3e} "
+          f"rel={rel:.3e} (tol {CONSISTENCY_RTOL:g} of max|logit|="
+          f"{scale:.3f}), argmax equal {same}; bf16 compute (not gated) "
+          f"rel={bf[1]:.3e}, argmax equal {bf[3]}")
+    if not (rel <= CONSISTENCY_RTOL and same and finite and bf[4]):
+        raise AssertionError(f"{label}: decode disagrees with the train "
+                             f"forward")
+
+
+def decoder_phase(dev, card: str) -> None:
+    """Phase 17: the decoder attention family through ``generate`` (module
+    docstring); raises on any failed check."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    t_phase = time.perf_counter()
+    reset_all_counts()
+    arch, batch, prompt, gen = DECODER
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    params = T.init_params(cfg, g, dev)
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in T.tree_leaves(params))
+    print(f"[decoder] {cfg.name}: {cfg.n_layers} blocks, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, head_dim "
+          f"{cfg.head_dim}, {T._rope_dims(cfg)} rotary dims, {cfg.norm}; "
+          f"{n_par} parameters drawn on the card in "
+          f"{time.perf_counter() - t0:.3f} s")
+    if n_par != cfg.param_count():
+        raise AssertionError(f"{n_par} parameters != param_count "
+                             f"{cfg.param_count()}")
+    time_generate(cfg.name, cfg, params,
+                  decoder_prompts(cfg, batch, prompt, dev), gen,
+                  DECODER_PREFILLS, card)
+    decoder_consistency(cfg.name, cfg, params, *DECODER_CHECK, dev)
+    del params
+    torch.cuda.empty_cache()
+
+    units, cb, cs = CARD_CPU
+    small = cut_depth(cfg, units)
+    t0 = time.perf_counter()
+    cpu_params = T.init_params(small, torch.Generator().manual_seed(SEED))
+    on_card = T.tree_map(lambda a: a.to(dev), cpu_params)
+    toks = torch.randint(0, cfg.vocab, (cb, cs),
+                         generator=torch.Generator().manual_seed(SEED + 3))
+    with compute_dtype(torch.float32):
+        want = T.forward(cpu_params, small, tokens=toks, mode="train")
+        got = T.forward(on_card, small, tokens=toks.to(dev), mode="train")
+    err, rel, scale = max_err(got, want.to(dev))
+    print(f"[decoder] {cfg.name} cut to {units} blocks, f32 compute, train "
+          f"logits batch {cb} prompt {cs}, card vs CPU: max_abs_err="
+          f"{err:.3e} rel={rel:.3e} (tol {CARD_CPU_RTOL:g} of max|logit|="
+          f"{scale:.3f}); {time.perf_counter() - t0:.3f} s with the CPU "
+          f"draws")
+    if not (rel <= CARD_CPU_RTOL and torch.isfinite(got).all()):
+        raise AssertionError(f"{cfg.name}: card disagrees with the CPU")
+    del cpu_params, on_card, want, got
+
+    for arch in DECODER_CUTS:
+        full = get_config(arch)
+        cut = cut_depth(full, CUT_UNITS)
+        t0 = time.perf_counter()
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        params = T.init_params(cut, g, dev)
+        torch.cuda.synchronize()
+        n_par = sum(t.numel() for t in T.tree_leaves(params))
+        label = (f"{full.name} ({full.stages[0].n_units} -> {CUT_UNITS} "
+                 f"units)")
+        print(f"[decoder] {label}: d {cut.d_model}, {cut.n_heads} heads / "
+              f"{cut.n_kv_heads} kv (groups of "
+              f"{cut.n_heads // cut.n_kv_heads}), head_dim {cut.head_dim}, "
+              f"qkv_bias {cut.qkv_bias}; {n_par} parameters "
+              f"({4 * n_par / 1e9:.1f} GB in f32) drawn on the card in "
+              f"{time.perf_counter() - t0:.3f} s")
+        if n_par != cut.param_count():
+            raise AssertionError(f"{n_par} parameters != param_count "
+                                 f"{cut.param_count()}")
+        cb, cp, cg = CUT_RUN
+        time_generate(label, cut, params,
+                      decoder_prompts(cut, cb, cp, dev), cg,
+                      DECODER_PREFILLS, card)
+        decoder_consistency(label, cut, params, *CUT_RUN[:2], dev)
+        del params
+        torch.cuda.empty_cache()
+
+    counts = launch_counts()
+    print(f"[decoder] kernel launches over phase 17: {counts}")
+    if any(counts.values()):
+        raise AssertionError(f"the decoder attention family launched "
+                             f"{counts}; its path has no kernel")
+    print(f"[decoder] phase 17 in {time.perf_counter() - t_phase:.3f} s")
+
+
 def main() -> int:
+    t_main = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2520,6 +2731,9 @@ def main() -> int:
     served = serving_phase(cnn8, dev, card)
     # -- 16. the autotuner ------------------------------------------------
     tuned = tune_phase(cnn8, incep, dev, card)
+    # -- 17. the decoder attention family ----------------------------------
+    decoder_phase(dev, card)
+    print(f"[main] phases 1-17 in {time.perf_counter() - t_main:.3f} s")
     for row in rows:
         if row["name"] in served:
             row["serving_launches"] = served[row["name"]]

@@ -6,8 +6,12 @@ The paper's four CNN benchmarks (:data:`CNN_IDS`) are here in full: each
 returns ``{"layers", "array"}`` as the JAX registry's does.  Of
 :data:`ARCH_IDS` only the configs a ported path serves have their module
 (:data:`PORTED`): the transformer lowering serves stablelm-1.6b and the
-whisper-base encoder, and ``launch/serve.py`` serves mamba2-130m.  The
-others raise until a slice needs them (ROADMAP.md queue 1)."""
+whisper-base encoder as mapped matmuls, and ``launch/serve.py``
+serves mamba2-130m and the attention family (stablelm-1.6b, qwen1.5-32b,
+deepseek-67b, mistral-large-123b) in their ``models/`` form.  The others
+raise until a slice needs them: mixtral-8x7b and deepseek-v2-lite
+(ROADMAP.md queue 1, item 4), recurrentgemma-9b and internvl2-26b
+(item 5)."""
 from __future__ import annotations
 
 import importlib
@@ -28,7 +32,8 @@ ARCH_IDS = (
 CNN_IDS = ("cnn8", "inception", "densenet40", "mobilenet")
 
 #: The configs of ARCH_IDS this package has.
-PORTED = ("stablelm_1_6b", "whisper_base", "mamba2_130m")
+PORTED = ("stablelm_1_6b", "whisper_base", "mamba2_130m", "qwen1_5_32b",
+          "deepseek_67b", "mistral_large_123b")
 
 
 def canon(arch: str) -> str:

@@ -4,12 +4,16 @@ plan see :mod:`repro_torch.launch.serve_cnn`.
 
     python -m repro_torch.launch.serve --arch mamba2_130m --smoke \
         --batch 4 --prompt-len 32 --gen 16 [--device cpu]
+    python -m repro_torch.launch.serve --arch stablelm_1_6b --smoke \
+        --device cpu
 
 Runs on the card unless ``--device`` says otherwise.  Weights and prompts
 are drawn from a ``torch.Generator`` seeded with ``--seed`` on the
 device (the distributions of the JAX package's init, not its draws).
-The port's model code runs the ``ssd`` family (mamba2-130m); the other
-configs raise ``NotImplementedError``.
+The port's model code runs the attention family (stablelm-1.6b,
+qwen1.5-32b, deepseek-67b, mistral-large-123b: GQA, MQA, sliding
+windows, KV caches) and the ``ssd`` family (mamba2-130m); the other
+configs raise.
 """
 from __future__ import annotations
 

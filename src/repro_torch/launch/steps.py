@@ -4,8 +4,11 @@
 prefill_step: forward over the full prompt -> (next token, cache).
 serve_step: one decode token against the cache -> (next token, cache).
 
-``loss_fn`` and ``make_train_step`` wait for training (ROADMAP.md queue
-1, item 10).  The JAX package jits these steps; here they run eagerly.
+Both serve every family the model code runs: the attention family
+(stablelm-1.6b, qwen1.5-32b, deepseek-67b, mistral-large-123b) and
+mamba2-130m.  ``loss_fn`` and ``make_train_step`` wait for the LM
+training loop (ROADMAP.md queue 1, item 6).  The JAX package jits these
+steps; here they run eagerly.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ def _model_inputs(cfg: ArchConfig, batch: Dict[str, Any]) -> Dict[str, Any]:
     if extra:
         raise NotImplementedError(
             f"batch keys {extra} (prefix or encoder embeddings) are not "
-            f"ported yet (ROADMAP.md queue 1, item 10)")
+            f"ported yet (ROADMAP.md queue 1, item 5)")
     return {"tokens": batch["tokens"]}
 
 

@@ -13,7 +13,7 @@ runs on the card unless ``--device cpu`` is given.
         --steps 2 --batch 2 --accum 2 --device cpu
 
 The language-model path (``--arch``) is not ported yet (ROADMAP.md
-queue 4) and raises.
+queue 1, item 6) and raises.
 """
 from __future__ import annotations
 
@@ -49,7 +49,7 @@ def main(argv=None):
     if args.plan_net is None:
         raise NotImplementedError(
             f"--arch {args.arch}: the language-model training loop is not "
-            f"ported yet (ROADMAP.md queue 4); use --plan-net")
+            f"ported yet (ROADMAP.md queue 1, item 6); use --plan-net")
     return _plan_main(args)
 
 

@@ -1,9 +1,12 @@
 """Shared model primitives (port of ``repro/models/common.py``): bf16
-compute, the norms, and the weight initialisers over a
-``torch.Generator``.
+compute, the norms, the activations, rotary and sinusoidal positions,
+and the weight
+initialisers over a ``torch.Generator`` (which takes the place of the
+JAX package's ``keygen``).
 
 The JAX package's ``norm_policy`` (bf16 norm chains, set only by its
-training launcher) is not ported: serving uses the default f32 norm."""
+training launcher) is not ported: serving uses the default f32 norm.
+It waits for the LM training loop (ROADMAP.md queue 1, item 6)."""
 from __future__ import annotations
 
 import math
@@ -34,6 +37,63 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
     y = (x32 - mu) * torch.rsqrt(var + eps)
     return y.to(dt) * cast(scale) + cast(bias)
+
+
+def _const(x: torch.Tensor, value: float) -> torch.Tensor:
+    """``value`` rounded to x's dtype, as a JAX weak-typed scalar is."""
+    return torch.tensor(value, dtype=x.dtype, device=x.device)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` with its roundings: x * sigmoid(x), the sigmoid as
+    XLA expands it, 1 / (1 + exp(-x)), each op rounded to x's dtype.
+    (``F.silu`` rounds once: 37 % of its bf16 results differ by an ulp.)"""
+    one = _const(x, 1.0)
+    return x * (one / (one + torch.exp(-x)))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default tanh form with its roundings: each op and
+    each constant in x's dtype (``F.gelu`` rounds once)."""
+    inner = _const(x, math.sqrt(2 / math.pi)) * (
+        x + _const(x, 0.044715) * x ** 3)
+    return x * (_const(x, 0.5) * (_const(x, 1.0) + torch.tanh(inner)))
+
+
+def rotary_cos_sin(positions: torch.Tensor, dim: int,
+                   base: float = 10000.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions: (...,) int -> cos/sin (..., dim//2) in fp32."""
+    inv = 1.0 / (base ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                       device=positions.device) / dim))
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                 rot_dim: Optional[int] = None) -> torch.Tensor:
+    """x: (..., seq, heads, dim); cos/sin: (..., seq, dim_rot//2).
+    Rotates the first ``rot_dim`` features (partial rotary supported),
+    rotate-half convention; cos/sin are cast to x's dtype first, as the
+    JAX package casts them."""
+    d = x.shape[-1] if rot_dim is None else rot_dim
+    xr, xp = x[..., :d], x[..., d:]
+    x1, x2 = xr.chunk(2, dim=-1)
+    c = cos[..., None, :].to(x.dtype)
+    s = sin[..., None, :].to(x.dtype)
+    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return torch.cat([out, xp], dim=-1) if xp.shape[-1] else out
+
+
+def sinusoidal_at(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """positions (n,) -> (n, dim): sines then cosines, in fp32."""
+    inv = 1.0 / (10000.0 ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                          device=positions.device) / dim))
+    ang = positions.float()[:, None] * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+
+
+def sinusoidal_positions(n: int, dim: int, device=None) -> torch.Tensor:
+    return sinusoidal_at(torch.arange(n, device=device), dim)
 
 
 def dense_init(gen: Optional[torch.Generator], shape: Tuple[int, ...],

@@ -11,8 +11,9 @@ The dataclasses are copied field for field so a config reads the same
 in both packages.  :class:`SSMConfig` and :func:`pad_vocab` live beside
 the model code that uses them (``ssm.py``, ``common.py``) and are
 re-exported here, as in the JAX package.  The model code
-(``transformer.py``) runs the ``ssd`` family; ``param_count`` counts
-from its init shapes, so it is defined for the families it runs.
+(``transformer.py``) runs the ``gqa`` and ``ssd`` families;
+``param_count`` counts from its init shapes, so it is defined for the
+families it runs.
 :class:`MoEConfig` is a plain copy: the MoE code is not ported yet.
 """
 from __future__ import annotations

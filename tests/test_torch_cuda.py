@@ -10,8 +10,10 @@ blocks held to the launch rule; also through the SSD mixer) and
 im2win_conv (also through the ops surface, with each of its
 kernels, in f32 and bf16); and training: the executors' gradients
 against F.conv2d's, the kernel entry points refusing autograd, and the
-plan trainer on the card against the CPU; and a small autotune over
-the sdk block modes.  Marked
+plan trainer on the card against the CPU; a small autotune over the
+sdk block modes; and the decoder attention family, which has no
+kernel: its prefill/decode consistency in f32 and the card against the
+CPU at the smoke configs, and ``attention`` card against CPU.  Marked
 ``cuda``: without a CUDA device each test skips.  On the card:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
@@ -773,3 +775,71 @@ def test_autotune_on_the_card(cuda):
     assert torch.isfinite(y).all()
     assert float((y - r).abs().max()) <= 1e-4 * float(r.abs().max())
     memo.clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["stablelm_1_6b", "qwen1_5_32b",
+                                  "deepseek_67b"])
+def test_gqa_decoder_on_the_card(cuda, arch, monkeypatch):
+    """The attention family at its smoke config, in f32 compute (TF32
+    off), the weights drawn once on the CPU: on the card, the decode
+    logits at position S after a prefill of S tokens within 1e-3 of
+    max|logit| of the train forward's at S, with the same argmax; the
+    card's train logits within 1e-4 of the CPU's; and no kernel
+    launched (the path has none)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import common
+    from repro_torch.models import transformer as T
+    monkeypatch.setattr(common, "COMPUTE_DTYPE", torch.float32)
+    cfg = get_config(arch, smoke=True)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    on_card = T.tree_map(lambda a: a.to(cuda), params)
+    s = 40
+    toks = torch.randint(0, cfg.vocab, (2, s + 1),
+                         generator=torch.Generator().manual_seed(1))
+    _reset_served()
+    full = T.forward(on_card, cfg, tokens=toks.to(cuda), mode="train")
+    _, cache = T.forward(on_card, cfg, tokens=toks[:, :s].to(cuda),
+                         mode="prefill", cache_len=s + 8)
+    dl, _ = T.forward(on_card, cfg, tokens=toks[:, s:].to(cuda),
+                      mode="decode", cache=cache, pos=s)
+    torch.cuda.synchronize()
+    assert not any(_served_launches().values())
+    a, b = full[:, s], dl[:, 0]
+    assert float((a - b).abs().max()) <= 1e-3 * float(a.abs().max())
+    assert torch.equal(a.argmax(-1), b.argmax(-1))
+    cpu = T.forward(params, cfg, tokens=toks, mode="train")
+    assert float((full.cpu() - cpu).abs().max()) <= \
+        1e-4 * float(cpu.abs().max())
+
+
+#: (sq, sk, hq, hkv, causal, window, q_offset, kv_len, q_block): cases of
+#: tests/test_torch_attention.py (MHA, GQA, MQA decode, a window with
+#: padded q blocks, a window streamed from an offset)
+ATTENTION_CASES = [(20, 20, 8, 8, True, None, 0, None, 512),
+                   (20, 20, 8, 2, False, None, 0, None, 512),
+                   (1, 24, 8, 1, True, None, 13, 14, 512),
+                   (20, 20, 8, 2, True, 6, 0, None, 8),
+                   (40, 48, 8, 2, True, 6, 8, 48, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ATTENTION_CASES)
+def test_attention_card_matches_cpu(cuda, dtype, case):
+    """``models.attention.attention`` (plain PyTorch ops on either
+    device): the card within 1e-5 of max|y| of the CPU in f32, one bf16
+    rounding more in bf16."""
+    from repro_torch.models import attention as A
+    sq, sk, hq, hkv, causal, window, q_offset, kv_len, q_block = case
+    rng = np.random.RandomState(sq + sk)
+    q, k, v = (torch.as_tensor(rng.randn(2, n, h, 16).astype(np.float32))
+               .to(dtype) for n, h in ((sq, hq), (sk, hkv), (sk, hkv)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              kv_len=kv_len, q_block=q_block)
+    want = A.attention(q, k, v, **kw).float()
+    got = A.attention(q.to(cuda), k.to(cuda), v.to(cuda), **kw)
+    assert got.dtype == dtype
+    tol = RTOL if dtype == torch.float32 else BF16_RTOL
+    assert float((got.float().cpu() - want).abs().max()) <= \
+        tol * float(want.abs().max())

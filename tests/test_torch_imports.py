@@ -32,7 +32,10 @@ def test_no_jax_or_reference_imports():
     assert {"tune/__init__.py", "tune/measure.py", "tune/space.py",
             "tune/search.py", "tune/report.py", "core/simulator.py",
             "configs/cnn8.py", "configs/inception.py",
-            "configs/densenet40.py", "configs/mobilenet.py"} <= names
+            "configs/densenet40.py", "configs/mobilenet.py",
+            "models/attention.py", "configs/qwen1_5_32b.py",
+            "configs/deepseek_67b.py",
+            "configs/mistral_large_123b.py"} <= names
     bad = [(f.relative_to(ROOT), name) for f in files
            for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "repro")]
@@ -48,6 +51,7 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.launch.transformer, repro_torch.configs, "
             "repro_torch.launch.serve, repro_torch.launch.steps, "
             "repro_torch.models.transformer, repro_torch.models.weights, "
+            "repro_torch.models.attention, "
             "repro_torch.kernels.ops, repro_torch.kernels.ref, "
             "repro_torch.kernels.ssd_chunk, repro_torch.kernels.im2win_conv, "
             "repro_torch.optim, repro_torch.data, repro_torch.cnn.models, "
@@ -59,6 +63,8 @@ def test_importing_the_port_loads_no_jax():
             "get_config('stablelm_1_6b'); get_config('whisper_base')\n"
             "[get_config(c) for c in CNN_IDS]\n"
             "get_config('mamba2_130m').param_count()\n"
+            "[get_config(c).param_count() for c in ('qwen1_5_32b', "
+            "'deepseek_67b', 'mistral_large_123b', 'stablelm_1_6b')]\n"
             "from repro_torch.kernels import _build\n"
             "assert not _build._loaded, 'a kernel was built at import'\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -91,6 +97,8 @@ def test_entry_points_need_a_card(monkeypatch):
                  lambda: serve_cnn.serve(net, 2, 1),
                  lambda: serve_cnn.main(["--steps", "1"]),
                  lambda: serve.main(["--smoke", "--gen", "1"]),
+                 lambda: serve.main(["--arch", "stablelm_1_6b", "--smoke",
+                                     "--gen", "1"]),
                  lambda: kernels_from_numpy([np.zeros((1, 1, 1, 1))]),
                  lambda: params_from_numpy({"w": np.zeros(2)}),
                  lambda: train_plan(net, steps=1, batch=2),

@@ -7,6 +7,8 @@ the full config's parameter count, and the port's own init.
 The forwards run twice: with both packages' compute type switched to f32
 (the same function, summed in another order: a tight tolerance that
 holds the algorithm) and in bf16, the serving type."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -203,6 +205,18 @@ def test_serve_main_on_cpu(capsys):
 
 
 def test_other_families_are_not_ported():
-    cfg = configs.get_config("stablelm_1_6b", smoke=True)
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-        T.init_params(cfg)
+    """MLA, MoE, RG-LRU, cross-attention and the encoder-decoder raise,
+    each naming its ROADMAP.md queue 1 item."""
+    from repro_torch.models import BlockSpec, Stage
+    base = configs.get_config("mamba2_130m", smoke=True)
+    for spec, kind, item in (
+            (BlockSpec("mla", "dense"), "decoder", 4),
+            (BlockSpec("gqa", "moe"), "decoder", 4),
+            (BlockSpec("rec", "dense"), "decoder", 5),
+            (BlockSpec("gqa", "dense", cross=True), "decoder", 5),
+            (BlockSpec("gqa", "dense"), "encdec", 5)):
+        cfg = dataclasses.replace(base, kind=kind,
+                                  stages=(Stage((spec,), 1),))
+        with pytest.raises(NotImplementedError,
+                           match=f"queue 1, item {item}\\)"):
+            T.init_params(cfg)

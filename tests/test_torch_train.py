@@ -415,5 +415,5 @@ def test_launch_train_plan_net_cpu(capsys):
     assert "step     1  loss" in out and "step     2  loss" in out
     assert "segment(s), accum=2, donated=False)" in out and "peak~" in out
     assert r.segments > 1 and np.isfinite(r.final_loss)
-    with pytest.raises(NotImplementedError, match="queue 4"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
         tlaunch.main(["--arch", "stablelm_1_6b"])
