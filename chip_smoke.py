@@ -179,7 +179,37 @@ Phases, each of which raises on failure (exit code != 0):
        12, head_dim 128, QKV bias), each drawn on the card and freed
        before the next: ``generate`` at batch 2, prompt 1024 (two q
        blocks), gen 8 as in a), then b)'s check at that batch and prompt;
-18. a ``{"kernels": [...]}`` line: per kernel its launches, error, time
+18. the last model families (MoE, MLA, RG-LRU, the vision prefix, the
+    encoder-decoder; plain PyTorch ops, as the JAX package's are plain
+    ``jnp``), with every launch count at 0 at its start and read at its
+    end, when each must still be 0; each model drawn on the card from the
+    seed (its count == ``param_count``) and freed before the next:
+    a) deepseek-v2-lite-16b at full width and depth (27 blocks: MLA, a
+       dense first layer, then 64 experts top-6 with 2 shared, MoE chunks
+       of 512): ``generate`` at batch 4, prompt 2048, gen 32 with phase
+       17a's timings, peak and profiles;
+    b) recurrentgemma-9b at full width and depth (38 blocks: (rec, rec,
+       attn) x 12 + (rec, rec); MQA with a 2048 window): ``generate`` at
+       batch 2, prompt 2560 (the prefill rolls its ring), gen 32 (decode
+       wraps it), as in a);
+    c) phase 17b's f32 consistency on each, with the conv tails kept in
+       f32 too: deepseek-v2-lite-16b at batch 1, prompt 511 (capacity 60
+       as at 512 tokens; the assignments of position 511 that the train
+       forward drops are printed per MoE layer, and with any the f32
+       reading is printed, not gated), recurrentgemma-9b at batch 1,
+       prompt 2560 (the ring decode against the windowed train forward);
+    d) card vs CPU, f32, each stage cut to 2 units, the weights drawn on
+       the card and copied to the CPU: deepseek-v2-lite-16b,
+       recurrentgemma-9b, mixtral-8x7b and whisper-base (1500 encoder
+       frames), train logits at batch 1, prompt 64, within 1e-4 of
+       max|logit|;
+    e) mixtral-8x7b (32 -> 2 units; window 4096, 8 experts top-2) and
+       internvl2-26b (48 -> 2) at full width, ``generate`` at batch 2,
+       prompt 1024, gen 8, internvl2-26b also one prefill through
+       ``make_prefill_step`` with its 256 prefix embeddings; whisper-base
+       at full width and depth (6 + 6 blocks) with 1500 encoder frames,
+       batch 4, prompt 64, gen 32; each with a)'s timings;
+19. a ``{"kernels": [...]}`` line: per kernel its launches, error, time
     at its path's shapes, the plain version's time, the least time the
     card could take (its bound) and the library call's time (and, for
     the kernels phases 15 and 16 run, their launches there);
@@ -254,6 +284,26 @@ CARD_CPU_RTOL = 1e-4
 DECODER_CUTS = ("qwen1_5_32b", "deepseek_67b", "mistral_large_123b")
 CUT_UNITS = 2
 CUT_RUN = (2, 1024, 8)
+#: phase 18, the last model families (MoE, MLA, RG-LRU, the vision
+#: prefix, the encoder-decoder): (config, batch, prompt, gen, (batch,
+#: prompt) of the f32 consistency check) of the two configs run at full
+#: width and depth.  deepseek-v2-lite-16b's check prompt 511 has the
+#: capacity of the train forward's 512 tokens (60 slots), so its last
+#: token is held to the prefill's capacity; recurrentgemma-9b's prompts
+#: pass the 2048 window (the prefill rolls its ring, decode wraps it)
+ZOO_FULL = (("deepseek_v2_lite_16b", 4, 2048, 32, (1, 511)),
+            ("recurrentgemma_9b", 2, 2560, 32, (1, 2560)))
+#: phase 18d: card vs CPU, f32, each stage cut to CUT_UNITS units, train
+#: logits at (batch, prompt) of CARD_CPU
+ZOO_CARD_CPU = ("deepseek_v2_lite_16b", "recurrentgemma_9b", "mixtral_8x7b",
+                "whisper_base")
+#: phase 18e: (config, units a stage keeps (None: all), batch, prompt,
+#: gen); internvl2-26b's prefill also takes its 256 prefix embeddings
+ZOO_OTHERS = (("mixtral_8x7b", CUT_UNITS, 2, 1024, 8),
+              ("internvl2_26b", CUT_UNITS, 2, 1024, 8),
+              ("whisper_base", None, 4, 64, 32))
+#: whisper-base's encoder frames: its 30 s window
+WHISPER_FRAMES = 1500
 #: the transformer path: (config, seq, batch), full width and depth
 TRANSFORMERS = (("stablelm_1_6b", 512, 4), ("whisper_base", 1024, 4))
 TF_WARMUP, TF_STEPS = 1, 20
@@ -1114,14 +1164,17 @@ def mamba_phase(dev, card: str) -> int:
 
 @contextlib.contextmanager
 def compute_dtype(dtype):
-    """The port's model compute type (bf16 as served) set to ``dtype``
-    for the block, then restored."""
+    """The port's model compute type (bf16 as served) and the type a
+    prefill stores its conv tails in (bf16 as the reference writes) set
+    to ``dtype`` for the block, then restored."""
     from repro_torch.models import common
-    old, common.COMPUTE_DTYPE = common.COMPUTE_DTYPE, dtype
+    from repro_torch.models import transformer as T
+    old = common.COMPUTE_DTYPE, T.CONV_TAIL_DTYPE
+    common.COMPUTE_DTYPE = T.CONV_TAIL_DTYPE = dtype
     try:
         yield
     finally:
-        common.COMPUTE_DTYPE = old
+        common.COMPUTE_DTYPE, T.CONV_TAIL_DTYPE = old
 
 
 def device_kernel_names(fn) -> list:
@@ -2294,21 +2347,24 @@ def tune_phase(cnn8, incep, dev, card: str) -> dict:
 
 
 def cut_depth(cfg, units: int):
-    """``cfg`` at full width with its one stage cut to ``units`` units."""
+    """``cfg`` at full width with each stage cut to at most ``units``
+    units."""
     import dataclasses
-    (stage,) = cfg.stages
-    return dataclasses.replace(
-        cfg, stages=(dataclasses.replace(stage, n_units=units),))
+    return dataclasses.replace(cfg, stages=tuple(
+        dataclasses.replace(st, n_units=min(st.n_units, units))
+        for st in cfg.stages))
 
 
 def time_generate(label: str, cfg, params, prompts, gen: int,
-                  prefills: int, card: str, kernel: str = "") -> tuple:
-    """``generate`` once (the warm-up), then ``prefills`` prefills and
-    gen - 1 decode steps timed (host clock, each ending in a synchronize;
-    medians), the peak allocation over them, and one prefill and one
-    decode step under ``torch.profiler`` (``kernel``: the entries to part
-    out).  Returns the launches of the warm-up, of the timed prefills and
-    of the timed decode steps; the counts are read, never reset."""
+                  prefills: int, card: str, kernel: str = "",
+                  enc_embeds=None) -> tuple:
+    """``generate`` once (the warm-up; an encoder-decoder's with its
+    ``enc_embeds``), then ``prefills`` prefills and gen - 1 decode steps
+    timed (host clock, each ending in a synchronize; medians), the peak
+    allocation over them, and one prefill and one decode step under
+    ``torch.profiler`` (``kernel``: the entries to part out).  Returns
+    the launches of the warm-up, of the timed prefills and of the timed
+    decode steps; the counts are read, never reset."""
     import statistics
     import torch
     from repro_torch.launch.serve import generate
@@ -2322,7 +2378,7 @@ def time_generate(label: str, cfg, params, prompts, gen: int,
     torch.cuda.reset_peak_memory_stats()
     before = launch_counts()
     t0 = time.perf_counter()
-    out = generate(cfg, params, prompts, gen)
+    out = generate(cfg, params, prompts, gen, enc_embeds=enc_embeds)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     first = since(before)
@@ -2333,11 +2389,14 @@ def time_generate(label: str, cfg, params, prompts, gen: int,
                              f" tokens outside the vocabulary or the prompt")
     prefill = make_prefill_step(cfg, cache_len=prompt + gen)
     serve = make_serve_step(cfg)
+    batch_in = {"tokens": prompts}
+    if enc_embeds is not None:
+        batch_in["enc_embeds"] = enc_embeds
     before = launch_counts()
     t_pre = []
     for _ in range(prefills):
         t0 = time.perf_counter()
-        nxt, cache = prefill(params, {"tokens": prompts})
+        nxt, cache = prefill(params, batch_in)
         torch.cuda.synchronize()
         t_pre.append(time.perf_counter() - t0)
     n_pre = since(before)
@@ -2361,8 +2420,8 @@ def time_generate(label: str, cfg, params, prompts, gen: int,
           f"{batch / dec_ms * 1e3:.1f} tokens/s); peak allocation "
           f"{peak / 2**30:.3f} GiB; on {card}")
     # the next step writes at prompt + gen - 1, the cache's last slot
-    profile_call(f"{label} prefill", lambda: prefill(
-        params, {"tokens": prompts}), pre_ms, kernel)
+    profile_call(f"{label} prefill", lambda: prefill(params, batch_in),
+                 pre_ms, kernel)
     profile_call(f"{label} decode step", lambda: serve(
         params, cache, tok, prompt + gen - 1), dec_ms, kernel)
     return first, n_pre, n_dec
@@ -2375,21 +2434,47 @@ def decoder_prompts(cfg, batch: int, prompt: int, dev):
                          device=dev)
 
 
+@contextlib.contextmanager
+def last_token_drops(record: list):
+    """Append, for each MoE route call in the block, the assignments of
+    the chunk's last token that its experts' capacity dropped (one count
+    per batch row)."""
+    from repro_torch.models import moe
+    route = moe.route
+
+    def counting(logits, cfg, cap):
+        disp, comb = route(logits, cfg, cap)
+        record.append(cfg.top_k - disp[:, -1].sum((-2, -1)))
+        return disp, comb
+
+    moe.route = counting
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
 def decoder_consistency(label: str, cfg, params, batch: int, s: int,
                         dev) -> None:
     """The JAX package's ``test_prefill_decode_consistency`` on the card:
     the decode logits at position ``s`` after a prefill of ``s`` tokens
-    against the train forward's at ``s``, gated in f32 compute and
-    printed in bf16 (as served)."""
+    against the train forward's at ``s``, gated in f32 compute (the conv
+    tails kept in f32 too) and printed in bf16 (as served).  A MoE
+    model's check holds only if the train forward keeps every expert
+    assignment of position ``s`` (a decode token is never dropped): the
+    dropped ones are printed per MoE layer, and with any the f32 reading
+    is printed, not gated."""
     import torch
     from repro_torch.models import transformer as T
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     toks = torch.randint(0, cfg.vocab, (batch, s + 1), generator=g,
                          device=dev)
-    gaps = {}
+    gaps, drops = {}, []
     for dtype in (torch.float32, torch.bfloat16):
         with compute_dtype(dtype):
-            full = T.forward(params, cfg, tokens=toks, mode="train")[:, s]
+            with last_token_drops(drops if dtype == torch.float32 else []):
+                full = T.forward(params, cfg, tokens=toks,
+                                 mode="train")[:, s]
             _, cache = T.forward(params, cfg, tokens=toks[:, :s],
                                  mode="prefill", cache_len=s + 8)
             dl = T.forward(params, cfg, tokens=toks[:, s:], mode="decode",
@@ -2403,12 +2488,18 @@ def decoder_consistency(label: str, cfg, params, batch: int, s: int,
         gaps[dtype] = (err, rel, scale, same, finite)
     err, rel, scale, same, finite = gaps[torch.float32]
     bf = gaps[torch.bfloat16]
+    dropped = [int(d.max()) for d in drops]
+    gated = not any(dropped)
+    moe = (f"; assignments of position {s} dropped by the train forward "
+           f"per MoE layer {dropped}" if cfg.moe is not None else "")
     print(f"[decoder] {label} prefill {s} + decode vs train forward at "
           f"position {s}, batch {batch}: f32 compute max_abs_err={err:.3e} "
           f"rel={rel:.3e} (tol {CONSISTENCY_RTOL:g} of max|logit|="
-          f"{scale:.3f}), argmax equal {same}; bf16 compute (not gated) "
-          f"rel={bf[1]:.3e}, argmax equal {bf[3]}")
-    if not (rel <= CONSISTENCY_RTOL and same and finite and bf[4]):
+          f"{scale:.3f}{'' if gated else '; not gated'}), argmax equal "
+          f"{same}; bf16 compute (not gated) rel={bf[1]:.3e}, argmax equal "
+          f"{bf[3]}{moe}")
+    if not (finite and bf[4] and (not gated or (rel <= CONSISTENCY_RTOL
+                                                and same))):
         raise AssertionError(f"{label}: decode disagrees with the train "
                              f"forward")
 
@@ -2496,6 +2587,142 @@ def decoder_phase(dev, card: str) -> None:
         raise AssertionError(f"the decoder attention family launched "
                              f"{counts}; its path has no kernel")
     print(f"[decoder] phase 17 in {time.perf_counter() - t_phase:.3f} s")
+
+
+def draw_on_card(label: str, cfg, dev):
+    """The model's weights drawn on the card from the seed; their count
+    must equal ``param_count``."""
+    import torch
+    from repro_torch.models import transformer as T
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                           dev)
+    torch.cuda.synchronize()
+    n_par = sum(a.numel() for a in T.tree_leaves(params))
+    units = " + ".join(f"{st.n_units} x {len(st.unit)}"
+                       for st in cfg.stages)
+    if cfg.kind == "encdec":
+        units += f" + {cfg.n_enc_layers} encoder"
+    print(f"[zoo] {label}: {cfg.n_layers} blocks ({units}), d "
+          f"{cfg.d_model}; {n_par} parameters ({4 * n_par / 2**30:.2f} "
+          f"GiB in f32) drawn on the card in "
+          f"{time.perf_counter() - t0:.3f} s")
+    if n_par != cfg.param_count():
+        raise AssertionError(f"{label}: {n_par} parameters != param_count "
+                             f"{cfg.param_count()}")
+    return params
+
+
+def frames(cfg, batch: int, n: int, dev):
+    """Encoder (or prefix) embeddings (batch, n, d_model), bf16, drawn
+    from the seed as the JAX ``main`` draws its frames."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    return torch.randn((batch, n, cfg.d_model), generator=g, device=dev,
+                       dtype=torch.bfloat16)
+
+
+def zoo_card_vs_cpu(arch: str, dev) -> None:
+    """Phase 18d for one config: each stage cut to CUT_UNITS units, the
+    weights drawn on the card and copied to the CPU, f32 compute: the
+    card's train logits within CARD_CPU_RTOL of max|logit| of the
+    CPU's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    full = get_config(arch)
+    cfg = cut_depth(full, CUT_UNITS)
+    label = f"{full.name} ({full.n_layers} -> {cfg.n_layers} blocks)"
+    on_card = draw_on_card(label, cfg, dev)
+    t0 = time.perf_counter()
+    on_cpu = T.tree_map(lambda a: a.cpu(), on_card)
+    _, cb, cs = CARD_CPU
+    toks = torch.randint(0, cfg.vocab, (cb, cs),
+                         generator=torch.Generator().manual_seed(SEED + 3))
+    kw_cpu = {}
+    if cfg.kind == "encdec":
+        kw_cpu["enc_embeds"] = frames(cfg, cb, WHISPER_FRAMES, dev).cpu()
+    with compute_dtype(torch.float32):
+        want = T.forward(on_cpu, cfg, tokens=toks, mode="train", **kw_cpu)
+        got = T.forward(on_card, cfg, tokens=toks.to(dev), mode="train",
+                        **{k: v.to(dev) for k, v in kw_cpu.items()})
+    err, rel, scale = max_err(got, want.to(dev))
+    print(f"[zoo] {label}, f32 compute, train logits batch {cb} prompt {cs}"
+          f"{' (1500 encoder frames)' if kw_cpu else ''}, card vs CPU: "
+          f"max_abs_err={err:.3e} rel={rel:.3e} (tol {CARD_CPU_RTOL:g} of "
+          f"max|logit|={scale:.3f}); {time.perf_counter() - t0:.3f} s with "
+          f"the copy and the CPU forward")
+    if not (rel <= CARD_CPU_RTOL and torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: card disagrees with the CPU")
+
+
+def prefix_prefill(label: str, cfg, params, prompts, dev, card: str) -> None:
+    """internvl2-26b's prefill through ``make_prefill_step`` with its
+    ``n_prefix`` vision embeddings before the prompt: the next tokens in
+    the vocabulary, a cache over prefix + prompt + 8 positions; timed."""
+    import torch
+    from repro_torch.launch.steps import make_prefill_step
+    batch, prompt = prompts.shape
+    step = make_prefill_step(cfg, cache_len=cfg.n_prefix + prompt + 8)
+    feed = {"tokens": prompts,
+            "prefix_embeds": frames(cfg, batch, cfg.n_prefix, dev)}
+    step(params, feed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nxt, cache = step(params, feed)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    k = cache[0][0]["attn"]["k"]
+    print(f"[zoo] {label} prefill with {cfg.n_prefix} prefix embeddings + "
+          f"prompt {prompt}, batch {batch}: {ms:.4f} ms; cache k "
+          f"{tuple(k.shape)}; next tokens {nxt.tolist()} on {card}")
+    if not (k.shape[2] == cfg.n_prefix + prompt + 8
+            and int(nxt.min()) >= 0 and int(nxt.max()) < cfg.vocab):
+        raise AssertionError(f"{label}: the prefix prefill returned "
+                             f"{tuple(k.shape)}, {nxt.tolist()}")
+
+
+def zoo_phase(dev, card: str) -> None:
+    """Phase 18: MoE, MLA, RG-LRU, the vision prefix and the
+    encoder-decoder through ``generate`` (module docstring); raises on
+    any failed check."""
+    import torch
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    reset_all_counts()
+    for arch, batch, prompt, gen, check_at in ZOO_FULL:
+        cfg = get_config(arch)
+        params = draw_on_card(cfg.name, cfg, dev)
+        time_generate(cfg.name, cfg, params,
+                      decoder_prompts(cfg, batch, prompt, dev), gen,
+                      DECODER_PREFILLS, card)
+        decoder_consistency(cfg.name, cfg, params, *check_at, dev)
+        del params
+        torch.cuda.empty_cache()
+    for arch in ZOO_CARD_CPU:
+        zoo_card_vs_cpu(arch, dev)
+        torch.cuda.empty_cache()
+    for arch, units, batch, prompt, gen in ZOO_OTHERS:
+        full = get_config(arch)
+        cfg = full if units is None else cut_depth(full, units)
+        label = (full.name if units is None else
+                 f"{full.name} ({full.n_layers} -> {cfg.n_layers} blocks)")
+        params = draw_on_card(label, cfg, dev)
+        prompts = decoder_prompts(cfg, batch, prompt, dev)
+        enc = (frames(cfg, batch, WHISPER_FRAMES, dev)
+               if cfg.kind == "encdec" else None)
+        time_generate(label, cfg, params, prompts, gen, DECODER_PREFILLS,
+                      card, enc_embeds=enc)
+        if cfg.n_prefix:
+            prefix_prefill(label, cfg, params, prompts, dev, card)
+        del params
+        torch.cuda.empty_cache()
+    counts = launch_counts()
+    print(f"[zoo] kernel launches over phase 18: {counts}")
+    if any(counts.values()):
+        raise AssertionError(f"the model families of phase 18 launched "
+                             f"{counts}; their path has no kernel")
+    print(f"[zoo] phase 18 in {time.perf_counter() - t_phase:.3f} s")
 
 
 def main() -> int:
@@ -2733,7 +2960,9 @@ def main() -> int:
     tuned = tune_phase(cnn8, incep, dev, card)
     # -- 17. the decoder attention family ----------------------------------
     decoder_phase(dev, card)
-    print(f"[main] phases 1-17 in {time.perf_counter() - t_main:.3f} s")
+    # -- 18. MoE, MLA, RG-LRU, the prefix and the encoder-decoder --------
+    zoo_phase(dev, card)
+    print(f"[main] phases 1-18 in {time.perf_counter() - t_main:.3f} s")
     for row in rows:
         if row["name"] in served:
             row["serving_launches"] = served[row["name"]]

@@ -4,16 +4,19 @@ plan see :mod:`repro_torch.launch.serve_cnn`.
 
     python -m repro_torch.launch.serve --arch mamba2_130m --smoke \
         --batch 4 --prompt-len 32 --gen 16 [--device cpu]
-    python -m repro_torch.launch.serve --arch stablelm_1_6b --smoke \
+    python -m repro_torch.launch.serve --arch deepseek_v2_lite_16b \
+        --smoke --device cpu
+    python -m repro_torch.launch.serve --arch whisper_base --smoke \
         --device cpu
 
-Runs on the card unless ``--device`` says otherwise.  Weights and prompts
-are drawn from a ``torch.Generator`` seeded with ``--seed`` on the
-device (the distributions of the JAX package's init, not its draws).
-The port's model code runs the attention family (stablelm-1.6b,
-qwen1.5-32b, deepseek-67b, mistral-large-123b: GQA, MQA, sliding
-windows, KV caches) and the ``ssd`` family (mamba2-130m); the other
-configs raise.
+Runs on the card unless ``--device`` says otherwise.  Weights, prompts
+and an encoder-decoder's frame embeddings (batch, prompt length,
+d_model; bf16) are drawn from a ``torch.Generator`` seeded with
+``--seed`` on the device (the distributions of the JAX package's init,
+not its draws).  Every config of the registry serves: the attention
+family, MLA and MoE, RG-LRU, the vision-prefix backbone and the
+encoder-decoder (``generate`` takes no prefix, as the JAX one takes
+none).
 """
 from __future__ import annotations
 
@@ -28,13 +31,18 @@ from ..models import transformer as T
 from .steps import make_prefill_step, make_serve_step
 
 
-def generate(cfg, params, prompts: torch.Tensor, gen: int) -> torch.Tensor:
+def generate(cfg, params, prompts: torch.Tensor, gen: int,
+             enc_embeds=None) -> torch.Tensor:
     """prompts (B, S) -> (B, S+gen) greedy continuation: one batched
-    prefill, then ``gen - 1`` decode steps."""
+    prefill (of an encoder-decoder with its ``enc_embeds``), then
+    ``gen - 1`` decode steps."""
     b, s = prompts.shape
     prefill = make_prefill_step(cfg, cache_len=s + gen)
     serve = make_serve_step(cfg)
-    nxt, cache = prefill(params, {"tokens": prompts})
+    batch = {"tokens": prompts}
+    if enc_embeds is not None:
+        batch["enc_embeds"] = enc_embeds
+    nxt, cache = prefill(params, batch)
     tok = nxt[:, None].to(prompts.dtype)
     out = [prompts, tok]
     for i in range(gen - 1):
@@ -63,8 +71,12 @@ def main(argv=None) -> torch.Tensor:
     params = T.init_params(cfg, gen, dev)
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                             generator=gen, device=dev)
+    enc = None
+    if cfg.kind == "encdec":
+        enc = torch.randn((args.batch, args.prompt_len, cfg.d_model),
+                          generator=gen, device=dev, dtype=torch.bfloat16)
     t0 = time.perf_counter()
-    out = generate(cfg, params, prompts, args.gen)
+    out = generate(cfg, params, prompts, args.gen, enc_embeds=enc)
     synchronize(dev)
     dt = time.perf_counter() - t0
     print(f"{cfg.name}: generated {args.gen} tokens x {args.batch} seqs "

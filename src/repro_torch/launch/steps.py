@@ -4,11 +4,11 @@
 prefill_step: forward over the full prompt -> (next token, cache).
 serve_step: one decode token against the cache -> (next token, cache).
 
-Both serve every family the model code runs: the attention family
-(stablelm-1.6b, qwen1.5-32b, deepseek-67b, mistral-large-123b) and
-mamba2-130m.  ``loss_fn`` and ``make_train_step`` wait for the LM
-training loop (ROADMAP.md queue 1, item 6).  The JAX package jits these
-steps; here they run eagerly.
+Both serve every config of the registry; a batch may carry
+``prefix_embeds`` (a vision prefix) and ``enc_embeds`` (an
+encoder-decoder's frames) beside ``tokens``.  ``loss_fn`` and
+``make_train_step`` wait for the LM training loop (ROADMAP.md queue 1,
+item 6).  The JAX package jits these steps; here they run eagerly.
 """
 from __future__ import annotations
 
@@ -25,12 +25,12 @@ def vocab_mask(cfg: ArchConfig, device=None) -> torch.Tensor:
 
 
 def _model_inputs(cfg: ArchConfig, batch: Dict[str, Any]) -> Dict[str, Any]:
-    extra = sorted(set(batch) - {"tokens"})
-    if extra:
-        raise NotImplementedError(
-            f"batch keys {extra} (prefix or encoder embeddings) are not "
-            f"ported yet (ROADMAP.md queue 1, item 5)")
-    return {"tokens": batch["tokens"]}
+    kw = {"tokens": batch["tokens"]}
+    if "prefix_embeds" in batch:
+        kw["prefix_embeds"] = batch["prefix_embeds"]
+    if "enc_embeds" in batch:
+        kw["enc_embeds"] = batch["enc_embeds"]
+    return kw
 
 
 def _greedy(cfg: ArchConfig, logits: torch.Tensor) -> torch.Tensor:
@@ -41,7 +41,8 @@ def _greedy(cfg: ArchConfig, logits: torch.Tensor) -> torch.Tensor:
 
 def make_prefill_step(cfg: ArchConfig, cache_len: Optional[int] = None):
     def prefill_step(params, batch: Dict[str, Any]):
-        """batch["tokens"] (B, S) -> (next token (B,), cache)."""
+        """batch["tokens"] (B, S) [+ "prefix_embeds", "enc_embeds"] ->
+        (next token (B,), cache)."""
         logits, cache = T.forward(params, cfg, mode="prefill",
                                   cache_len=cache_len,
                                   **_model_inputs(cfg, batch))

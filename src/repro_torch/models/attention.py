@@ -119,24 +119,29 @@ def init_kv_cache(batch: int, length: int, hkv: int, dh: int,
                              device=device)}
 
 
+def update_slice(buf: torch.Tensor, new: torch.Tensor, pos: int
+                 ) -> torch.Tensor:
+    """A copy of ``buf`` with ``new`` written along dim 1 from ``pos``.
+
+    A write past the end raises ``IndexError``, where the JAX package's
+    ``dynamic_update_slice`` clamps the start so the write fits (and
+    overwrites earlier slots)."""
+    length, n = buf.shape[1], new.shape[1]
+    if not 0 <= pos <= length - n:
+        raise IndexError(f"{n} cache position(s) at {pos} do not fit a "
+                         f"cache of length {length}")
+    out = buf.clone()
+    out[:, pos:pos + n] = new
+    return out
+
+
 def cache_insert(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
                  pos: int) -> dict:
-    """A new cache with (B, S_new, Hkv, Dh) written at position ``pos``;
-    the given one is left as it was.  For ring (sliding-window) caches
-    pass pos % length.
-
-    A write past the cache's end raises ``IndexError``, where the JAX
-    package's ``dynamic_update_slice`` clamps the start so the write
-    fits (and overwrites earlier slots)."""
-    length, n = cache["k"].shape[1], k_new.shape[1]
-    if not 0 <= pos <= length - n:
-        raise IndexError(f"cache_insert: {n} position(s) at {pos} do not "
-                         f"fit a cache of length {length}")
-    out = {}
-    for name, new in (("k", k_new), ("v", v_new)):
-        out[name] = cache[name].clone()
-        out[name][:, pos:pos + n] = new
-    return out
+    """A new cache with (B, S_new, Hkv, Dh) written at position ``pos``
+    (:func:`update_slice`); the given one is left as it was.  For ring
+    (sliding-window) caches pass pos % length."""
+    return {"k": update_slice(cache["k"], k_new, pos),
+            "v": update_slice(cache["v"], v_new, pos)}
 
 
 def decode_attention_ring(q: torch.Tensor, cache: dict, step: int,

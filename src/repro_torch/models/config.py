@@ -8,13 +8,11 @@ mixer: 'gqa' (incl. MQA/MHA/SWA/local via window), 'mla', 'rec' (RG-LRU),
 ffn:   'dense' (gated silu), 'gelu' (whisper), 'moe', 'none'
 
 The dataclasses are copied field for field so a config reads the same
-in both packages.  :class:`SSMConfig` and :func:`pad_vocab` live beside
-the model code that uses them (``ssm.py``, ``common.py``) and are
-re-exported here, as in the JAX package.  The model code
-(``transformer.py``) runs the ``gqa`` and ``ssd`` families;
-``param_count`` counts from its init shapes, so it is defined for the
-families it runs.
-:class:`MoEConfig` is a plain copy: the MoE code is not ported yet.
+in both packages.  :class:`MoEConfig`, :class:`SSMConfig` and
+:func:`pad_vocab` live beside the model code that uses them (``moe.py``,
+``ssm.py``, ``common.py``) and are re-exported here, as in the JAX
+package.  ``param_count`` counts from the model code's init shapes
+(``transformer.py``).
 """
 from __future__ import annotations
 
@@ -22,17 +20,8 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 from .common import pad_vocab
+from .moe import MoEConfig
 from .ssm import SSMConfig
-
-
-@dataclass(frozen=True)
-class MoEConfig:
-    n_experts: int
-    top_k: int
-    d_ff: int                    # per-expert hidden
-    n_shared: int = 0            # shared (always-on) experts, dsv2-style
-    capacity_factor: float = 1.25
-    chunk: int = 512
 
 
 @dataclass(frozen=True)
@@ -103,7 +92,7 @@ class ArchConfig:
         return transformer.count_params(self)
 
     def active_param_count(self) -> int:
-        """Parameters a token touches: all of them, since no ported
-        family routes tokens to experts (``moe`` init raises)."""
+        """Parameters a token touches: the total less the experts it is
+        not routed to (``n_experts - top_k`` per MoE block)."""
         from . import transformer
-        return transformer.count_params(self)
+        return transformer.count_params(self, active_only=True)

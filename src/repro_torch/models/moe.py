@@ -1,0 +1,106 @@
+"""Mixture-of-Experts (port of ``repro/models/moe.py``): token-choice
+top-k routing with capacity, GShard one-hot dispatch einsums, computed
+in sequence chunks.
+
+Chunking keeps the dispatch and combine tensors O(B * chunk * E *
+capacity) instead of O(B * S * E * capacity), so MoE activation memory
+stays flat in S.  Expert weights are (E, D, F) / (E, F, D).
+
+The JAX package's chunk ``lax.scan`` is a Python loop here, and its
+``jax.checkpoint`` (which changes nothing in a forward) is left out.  So
+is its mesh gather (``policy_mesh()``: the FSDP gather-at-use of the
+expert weights): the port runs on one device until meshes are ported
+(ROADMAP.md queue 1, item 7).  The weights are cast to the compute type
+once per call rather than once per chunk: the same values.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+
+from .common import cast, silu
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff: int                    # per-expert hidden
+    n_shared: int = 0            # shared (always-on) experts, dsv2-style
+    capacity_factor: float = 1.25
+    chunk: int = 512
+
+
+def capacity(cfg: MoEConfig, chunk_len: int) -> int:
+    return max(1, math.ceil(chunk_len * cfg.top_k * cfg.capacity_factor
+                            / cfg.n_experts))
+
+
+def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` over the last axis: the k largest, and on equal
+    values the lower index first (a stable descending sort; ``torch.topk``
+    promises no order on ties)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def route(logits: torch.Tensor, cfg: MoEConfig, cap: int
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """logits (B, T, E) -> dispatch (B,T,E,cap) one-hot, combine (same,
+    prob-weighted), both f32.  Top-k per token; an assignment whose rank
+    at its expert is ``cap`` or more is dropped (an all-zero slot row, as
+    ``jax.nn.one_hot`` gives out of range)."""
+    b, t, e = logits.shape
+    k = cfg.top_k
+    probs = torch.softmax(logits.float(), -1)
+    top_p, top_i = top_k(probs, k)                           # (B,T,K)
+    top_p = top_p / top_p.sum(-1, keepdim=True)              # renormalise
+
+    experts = torch.arange(e, device=logits.device)
+    onehot = (top_i[..., None] == experts).float()           # (B,T,K,E)
+    flat = onehot.reshape(b, t * k, e)
+    ranks = (torch.cumsum(flat, 1) - flat).reshape(b, t, k, e)
+    keep = (ranks < cap) * onehot
+    rank = (ranks * onehot).sum(-1)                          # (B,T,K)
+    slots = torch.arange(cap, device=logits.device)
+    slot = (rank[..., None] == slots).float()                # (B,T,K,cap)
+    disp = torch.einsum("btke,btkc->btec", keep, slot)
+    comb = torch.einsum("btke,btkc,btk->btec", keep, slot, top_p)
+    return disp, comb
+
+
+def expert_ffn(xe: torch.Tensor, wi, wg, wo) -> torch.Tensor:
+    """xe (B,E,cap,D); weights (E,D,F)/(E,F,D) -> (B,E,cap,D)."""
+    h = torch.einsum("becd,edf->becf", xe, cast(wi))
+    g = torch.einsum("becd,edf->becf", xe, cast(wg))
+    return torch.einsum("becf,efd->becd", silu(g) * h, cast(wo))
+
+
+def moe_ffn(x: torch.Tensor, params: dict, cfg: MoEConfig) -> torch.Tensor:
+    """x (B,S,D) -> (B,S,D).  params: router (D,E), wi/wg (E,D,F),
+    wo (E,F,D), optional shared_{wi,wg,wo} ((D,Fs)/(Fs,D))."""
+    b, s, d = x.shape
+    chunk = min(cfg.chunk, s)
+    if s % chunk:
+        raise ValueError(f"seq {s} not divisible by moe chunk {chunk}")
+    cap = capacity(cfg, chunk)
+    router = cast(params["router"])
+    wi, wg, wo = (cast(params[n]) for n in ("wi", "wg", "wo"))
+
+    ys = []
+    for c in range(s // chunk):
+        xc = x[:, c * chunk:(c + 1) * chunk]
+        disp, comb = route(xc @ router, cfg, cap)
+        xe = torch.einsum("btec,btd->becd", disp.to(xc.dtype), xc)
+        ye = expert_ffn(xe, wi, wg, wo)
+        ys.append(torch.einsum("btec,becd->btd", comb.to(xc.dtype), ye))
+    y = torch.cat(ys, 1) if len(ys) > 1 else ys[0]
+
+    if cfg.n_shared:
+        h = x @ cast(params["shared_wi"])
+        g = x @ cast(params["shared_wg"])
+        y = y + (silu(g) * h) @ cast(params["shared_wo"])
+    return y

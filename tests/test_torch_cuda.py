@@ -11,9 +11,11 @@ im2win_conv (also through the ops surface, with each of its
 kernels, in f32 and bf16); and training: the executors' gradients
 against F.conv2d's, the kernel entry points refusing autograd, and the
 plan trainer on the card against the CPU; a small autotune over the
-sdk block modes; and the decoder attention family, which has no
-kernel: its prefill/decode consistency in f32 and the card against the
-CPU at the smoke configs, and ``attention`` card against CPU.  Marked
+sdk block modes; the decoder attention family, which has no kernel:
+its prefill/decode consistency in f32 and the card against the CPU at
+the smoke configs, and ``attention`` card against CPU; and the same for
+MoE, MLA, RG-LRU, the vision prefix and the encoder-decoder, with
+``moe.route``'s order on ties on the card.  Marked
 ``cuda``: without a CUDA device each test skips.  On the card:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
@@ -843,3 +845,91 @@ def test_attention_card_matches_cpu(cuda, dtype, case):
     tol = RTOL if dtype == torch.float32 else BF16_RTOL
     assert float((got.float().cpu() - want).abs().max()) <= \
         tol * float(want.abs().max())
+
+
+def _every_launch():
+    """{kernel: launches} of all seven kernels."""
+    from repro_torch.kernels import im2win_conv as iw
+    from repro_torch.kernels import ssd_chunk as sc
+    return {**_served_launches(), "ssd_chunk": sc.ssd_chunk_cuda.launches,
+            "im2win_conv": iw.im2win_conv_cuda.launches}
+
+
+def _reset_every():
+    from repro_torch.kernels import im2win_conv as iw
+    from repro_torch.kernels import ssd_chunk as sc
+    _reset_served()
+    sc.reset_counts()
+    iw.reset_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral_8x7b", "deepseek_v2_lite_16b",
+                                  "recurrentgemma_9b", "internvl2_26b",
+                                  "whisper_base"])
+def test_zoo_on_the_card(cuda, arch, monkeypatch):
+    """MoE, MLA, RG-LRU, the vision prefix and the encoder-decoder at
+    their smoke configs, f32 compute (TF32 off), the weights drawn once
+    on the CPU: on the card, the decode logits at position S after a
+    prefill of S tokens (the conv tails kept in f32 too) within 1e-3 of
+    max|logit| of the train forward's there, with the same argmax; the
+    card's train logits within 1e-4 of the CPU's; and no kernel launched
+    (the path has none)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import common
+    from repro_torch.models import transformer as T
+    monkeypatch.setattr(common, "COMPUTE_DTYPE", torch.float32)
+    monkeypatch.setattr(T, "CONV_TAIL_DTYPE", torch.float32)
+    cfg = get_config(arch, smoke=True)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    on_card = T.tree_map(lambda a: a.to(cuda), params)
+    s = 40
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, s + 1), generator=g)
+    kw = {}
+    if cfg.n_prefix:
+        kw["prefix_embeds"] = torch.randn((2, cfg.n_prefix, cfg.d_model),
+                                          generator=g)
+    if cfg.kind == "encdec":
+        kw["enc_embeds"] = torch.randn((2, 24, cfg.d_model), generator=g)
+    kw_card = {k: v.to(cuda) for k, v in kw.items()}
+    p = cfg.n_prefix
+    _reset_every()
+    full = T.forward(on_card, cfg, tokens=toks.to(cuda), mode="train",
+                     **kw_card)
+    _, cache = T.forward(on_card, cfg, tokens=toks[:, :s].to(cuda),
+                         mode="prefill", cache_len=p + s + 8, **kw_card)
+    dl, _ = T.forward(on_card, cfg, tokens=toks[:, s:].to(cuda),
+                      mode="decode", cache=cache, pos=p + s)
+    torch.cuda.synchronize()
+    assert not any(_every_launch().values())
+    a, b = full[:, p + s], dl[:, 0]
+    assert float((a - b).abs().max()) <= 1e-3 * float(a.abs().max())
+    assert torch.equal(a.argmax(-1), b.argmax(-1))
+    cpu = T.forward(params, cfg, tokens=toks, mode="train", **kw)
+    assert float((full.cpu() - cpu).abs().max()) <= \
+        1e-4 * float(cpu.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,k", [(8, 2), (64, 6)])
+def test_route_tie_order_on_the_card(cuda, e, k):
+    """``moe.route`` on router logits that tie (five values): the card
+    sends every token to the experts the CPU does (CUDA's stable sort
+    keeps the lower index first, as ``jax.lax.top_k``), drops the same
+    assignments, and weighs them within a few f32 ulps."""
+    from repro_torch.models import moe
+    rng = np.random.RandomState(e)
+    logits = torch.as_tensor(rng.choice([-1.0, -0.5, 0.0, 0.5, 1.0],
+                                        size=(2, 512, e)).astype(np.float32))
+    cfg = moe.MoEConfig(n_experts=e, top_k=k, d_ff=8, capacity_factor=1.0)
+    cap = moe.capacity(cfg, 512)
+    _, idx = moe.top_k(torch.softmax(logits, -1), k)
+    _, idx_card = moe.top_k(torch.softmax(logits.to(cuda), -1), k)
+    assert torch.equal(idx_card.cpu(), idx)
+    disp, comb = moe.route(logits, cfg, cap)
+    disp_card, comb_card = moe.route(logits.to(cuda), cfg, cap)
+    assert disp.sum() < 2 * 512 * k            # capacity drops some
+    assert torch.equal(disp_card.cpu(), disp)
+    assert torch.equal(comb_card.cpu() != 0, comb != 0)
+    assert float((comb_card.cpu() - comb).abs().max()) <= 2e-6

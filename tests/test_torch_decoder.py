@@ -327,5 +327,12 @@ def test_serve_main_on_cpu(capsys):
 @pytest.mark.parametrize("arch", ["mixtral_8x7b", "recurrentgemma_9b",
                                   "internvl2_26b", "deepseek_v2_lite_16b"])
 def test_other_configs_are_not_ported(arch):
-    with pytest.raises(ValueError, match="not ported yet"):
-        configs.get_config(arch)
+    """The configs outside the attention family, which the registry
+    refused until their families were ported, now load: full and smoke,
+    equal to the JAX package's, each in ``all_configs``."""
+    for smoke in (False, True):
+        want = j_configs.get_config(arch, smoke=smoke)
+        got = configs.get_config(arch, smoke=smoke)
+        assert repr(got).replace("repro_torch.", "") == \
+            repr(want).replace("repro.", "")
+        assert configs.all_configs(smoke)[arch] == got

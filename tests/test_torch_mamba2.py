@@ -205,18 +205,36 @@ def test_serve_main_on_cpu(capsys):
 
 
 def test_other_families_are_not_ported():
-    """MLA, MoE, RG-LRU, cross-attention and the encoder-decoder raise,
-    each naming its ROADMAP.md queue 1 item."""
+    """Every block and kind of the reference initialises (MLA, MoE,
+    RG-LRU, cross-attention, the encoder-decoder; on ``meta``, with the
+    JAX package's leaf count); a mixer, ffn or kind outside the
+    reference's raises ``NotImplementedError`` naming the reference's."""
+    from repro.models import BlockSpec as JBlockSpec, Stage as JStage
     from repro_torch.models import BlockSpec, Stage
-    base = configs.get_config("mamba2_130m", smoke=True)
-    for spec, kind, item in (
-            (BlockSpec("mla", "dense"), "decoder", 4),
-            (BlockSpec("gqa", "moe"), "decoder", 4),
-            (BlockSpec("rec", "dense"), "decoder", 5),
-            (BlockSpec("gqa", "dense", cross=True), "decoder", 5),
-            (BlockSpec("gqa", "dense"), "encdec", 5)):
+    base = configs.get_config("deepseek_v2_lite_16b", smoke=True)
+    base = dataclasses.replace(base, rnn_width=32, n_enc_layers=1)
+    base_j = dataclasses.replace(
+        j_configs.get_config("deepseek_v2_lite_16b", smoke=True),
+        rnn_width=32, n_enc_layers=1)
+    for args, kw, kind in ((("mla", "dense"), {}, "decoder"),
+                           (("gqa", "moe"), {}, "decoder"),
+                           (("rec", "dense"), {}, "decoder"),
+                           (("gqa", "dense"), {"cross": True}, "decoder"),
+                           (("gqa", "dense"), {}, "encdec")):
+        cfg = dataclasses.replace(base, kind=kind, stages=(
+            Stage((BlockSpec(*args, **kw),), 1),))
+        cfg_j = dataclasses.replace(base_j, kind=kind, stages=(
+            JStage((JBlockSpec(*args, **kw),), 1),))
+        shapes = jax.eval_shape(lambda k: JT.init_params(cfg_j, k),
+                                jax.random.PRNGKey(0))
+        assert len(T.tree_leaves(T.init_params(cfg, device="meta"))) == \
+            len(jax.tree.leaves(shapes))
+    for spec, kind, what in ((BlockSpec("xyz", "dense"), "decoder", "mixer"),
+                             (BlockSpec("gqa", "xyz"), "decoder", "ffn"),
+                             (BlockSpec("gqa", "dense"), "xyz", "kind")):
         cfg = dataclasses.replace(base, kind=kind,
                                   stages=(Stage((spec,), 1),))
         with pytest.raises(NotImplementedError,
-                           match=f"queue 1, item {item}\\)"):
+                           match=f"{what} 'xyz' is not one of the "
+                                 f"reference's"):
             T.init_params(cfg)

@@ -86,9 +86,14 @@ def test_configs_match(arch, smoke):
 
 
 def test_unported_configs_raise():
-    assert set(configs.ARCH_IDS) == set(j_configs.ARCH_IDS)
-    with pytest.raises(ValueError, match="not ported yet"):
-        configs.get_config("mixtral_8x7b")
+    """Every id of ``ARCH_IDS`` loads (``all_configs``, full and smoke,
+    equal to the JAX package's); only an unknown id raises."""
+    assert configs.ARCH_IDS == j_configs.ARCH_IDS
+    for smoke in (False, True):
+        got, want = configs.all_configs(smoke), j_configs.all_configs(smoke)
+        assert list(got) == list(want)
+        assert [dataclasses.asdict(c) for c in got.values()] == \
+            [dataclasses.asdict(c) for c in want.values()]
     with pytest.raises(ValueError, match="unknown"):
         configs.get_config("no_such_model")
 
