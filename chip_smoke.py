@@ -209,7 +209,34 @@ Phases, each of which raises on failure (exit code != 0):
        ``make_prefill_step`` with its 256 prefix embeddings; whisper-base
        at full width and depth (6 + 6 blocks) with 1500 encoder frames,
        batch 4, prompt 64, gen 32; each with a)'s timings;
-19. a ``{"kernels": [...]}`` line: per kernel its launches, error, time
+19. the LM training loop (``launch.steps.make_train_step``: microbatched
+    gradient accumulation, each unit recomputed in the backward, AdamW;
+    ``loss_fn`` runs the plain versions, as no kernel has a backward),
+    with every launch count at 0 at its start and read at its end, when
+    each must still be 0; each model drawn on the card from the seed (its
+    count == ``param_count``) and freed before the next:
+    a) stablelm-1.6b at full width and depth at seq 4096 (the JAX
+       package's train_4k sequence), global batch 4 as 4 microbatches of
+       1, batches from ``TokenStream``: one warm-up and 4 timed steps, the
+       step's median ms, tokens/s, the losses (finite), the peak
+       allocation, and one more step under ``torch.profiler``;
+    b) the same model at seq 1024, batch 1, remat on vs off: the loss
+       bitwise, the gradients within 1e-6 of each leaf's max|g|, the
+       backward's peak allocation lower with remat, a step's ms in each
+       mode;
+    c) mamba2-130m at full width and depth, seq 2048, global batch 8 as 2
+       microbatches, as in a);
+    d) card vs CPU in f32 compute, stablelm-1.6b and mamba2-130m with each
+       stage cut to 2 units at full width (weights drawn on the card and
+       copied to the CPU), batch 2, seq 64: the loss within 1e-5 relative
+       and every gradient leaf within 1e-4 of its max|g|;
+    e) ``launch.train --arch mamba2_130m --steps 20 --batch 8 --seq 512
+       --save-every 10`` uninterrupted, then the same run losing its
+       worker at step 15 and ``--resume`` from the checkpoint at 10: the
+       resumed run reads the same token batches bit for bit and its
+       losses are within 1e-4 relative of the uninterrupted run's
+       (bitwise printed);
+20. a ``{"kernels": [...]}`` line: per kernel its launches, error, time
     at its path's shapes, the plain version's time, the least time the
     card could take (its bound) and the library call's time (and, for
     the kernels phases 15 and 16 run, their launches there);
@@ -1189,16 +1216,22 @@ def device_kernel_names(fn) -> list:
                    if e.device_type == torch.autograd.DeviceType.CUDA})
 
 
-def profile_call(label: str, fn, wall_ms: float, kernel: str = "") -> None:
+def profile_call(label: str, fn, wall_ms: float, kernel: str = "",
+                 host: bool = True) -> None:
     """One ``fn()`` under ``torch.profiler``: its device time (kernels,
     copies, fills) beside the call's wall time when it serves (their
     ratio is the device's busy share), the part of the device entries
     whose name holds ``kernel`` with the names it matched, and the
-    largest entries."""
+    largest entries.  ``host=False`` records the device activity alone
+    (a training step's hundreds of thousands of host events take tens of
+    seconds to sum)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA]
+    if host:
+        acts.insert(0, ProfilerActivity.CPU)
+    t0 = time.perf_counter()
+    with profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
     dev = [e for e in prof.key_averages()
@@ -1216,8 +1249,10 @@ def profile_call(label: str, fn, wall_ms: float, kernel: str = "") -> None:
                 f"%) in " + (", ".join(f"{e.key} x{e.count}" for e in hits)
                              or "no entry") + "; ")
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
-    print(f"[profile] {label}: {total_us / 1e3:.4f} ms of device time in "
-          f"{sum(e.count for e in dev)} device events, "
+    cost = "" if host else (f" (profiled and summed in "
+                            f"{time.perf_counter() - t0:.3f} s)")
+    print(f"[profile] {label}{cost}: {total_us / 1e3:.4f} ms of device time "
+          f"in {sum(e.count for e in dev)} device events, "
           f"{100 * total_us / 1e3 / wall_ms:.1f} % of its {wall_ms:.4f} ms "
           f"wall time; {part}largest: " + "; ".join(
               f"{e.key[:48]} x{e.count} {e.self_device_time_total / 1e3:.4f}"
@@ -2589,7 +2624,7 @@ def decoder_phase(dev, card: str) -> None:
     print(f"[decoder] phase 17 in {time.perf_counter() - t_phase:.3f} s")
 
 
-def draw_on_card(label: str, cfg, dev):
+def draw_on_card(label: str, cfg, dev, tag: str = "zoo"):
     """The model's weights drawn on the card from the seed; their count
     must equal ``param_count``."""
     import torch
@@ -2603,7 +2638,7 @@ def draw_on_card(label: str, cfg, dev):
                        for st in cfg.stages)
     if cfg.kind == "encdec":
         units += f" + {cfg.n_enc_layers} encoder"
-    print(f"[zoo] {label}: {cfg.n_layers} blocks ({units}), d "
+    print(f"[{tag}] {label}: {cfg.n_layers} blocks ({units}), d "
           f"{cfg.d_model}; {n_par} parameters ({4 * n_par / 2**30:.2f} "
           f"GiB in f32) drawn on the card in "
           f"{time.perf_counter() - t0:.3f} s")
@@ -2723,6 +2758,282 @@ def zoo_phase(dev, card: str) -> None:
         raise AssertionError(f"the model families of phase 18 launched "
                              f"{counts}; their path has no kernel")
     print(f"[zoo] phase 18 in {time.perf_counter() - t_phase:.3f} s")
+
+
+#: phase 19, LM training: (config, seq, global batch, microbatches) of
+#: the two runs at full width and depth.  stablelm-1.6b at the JAX
+#: package's train_4k sequence (launch/shapes.py), its global batch of 256
+#: cut to 4 for one card and the time limit; one warm-up step, then
+#: LM_TRAIN_STEPS timed
+LM_TRAIN = (("stablelm_1_6b", 4096, 4, 4), ("mamba2_130m", 2048, 8, 2))
+LM_TRAIN_STEPS = 4
+#: 19b: stablelm-1.6b remat on vs off at (seq, batch); the gradients the
+#: same function recomputed, relative to each leaf's max|g|
+LM_REMAT = (1024, 1)
+LM_REMAT_GRAD_RTOL = 1e-6
+#: 19d: card vs CPU, f32 compute (TF32 off), each stage cut to CUT_UNITS
+#: units, at (batch, seq): the loss relative, each gradient leaf relative
+#: to its max|g|
+LM_CARD_CPU = ("stablelm_1_6b", "mamba2_130m")
+LM_CARD_CPU_RUN = (2, 64)
+LM_CARD_CPU_LOSS_RTOL = 1e-5
+LM_CARD_CPU_GRAD_RTOL = 1e-4
+#: 19e: the CLI at full width, uninterrupted; then the supervisor losing
+#: its worker at LM_CLI_FAIL_AT and ``--resume`` from the last checkpoint;
+#: the resumed losses relative to the uninterrupted run's
+LM_CLI = ["--arch", "mamba2_130m", "--steps", "20", "--batch", "8", "--seq",
+          "512", "--save-every", "10", "--seed", str(SEED)]
+LM_CLI_FAIL_AT = 15
+LM_RESUME_RTOL = 1e-4
+
+
+def lm_train_run(arch: str, seq: int, batch: int, n_mb: int, dev,
+                 card: str) -> None:
+    """Phase 19a/c for one model: drawn on the card, ``make_train_step``
+    over batches of the token stream, one warm-up and LM_TRAIN_STEPS timed
+    steps (host clock, each ending in a synchronize), the losses (finite),
+    the peak allocation over the timed steps, and one more step under
+    ``torch.profiler``."""
+    import statistics
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import ShardedDataPipeline, TokenStream
+    from repro_torch.launch.steps import TrainConfig, make_train_step
+    from repro_torch.optim import adamw_init
+    cfg = get_config(arch)
+    params = draw_on_card(cfg.name, cfg, dev, tag="lm-train")
+    state = {"params": params, "opt": adamw_init(params)}
+    del params
+    step = make_train_step(cfg, TrainConfig(
+        microbatches=n_mb, peak_lr=1e-3, warmup_steps=2, total_steps=100))
+    pipe = ShardedDataPipeline(TokenStream(vocab=cfg.vocab, seq_len=seq,
+                                           global_batch=batch, seed=SEED))
+
+    def feed():
+        return {"tokens": torch.as_tensor(pipe.next(), device=dev)}
+    losses, secs = [], []
+    for i in range(1 + LM_TRAIN_STEPS):
+        b = feed()
+        torch.cuda.synchronize()
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = 1e3 * statistics.median(secs[1:])
+    tokens = batch * seq
+    print(f"[lm-train] {cfg.name} seq {seq} global batch {batch} as {n_mb} "
+          f"microbatches of {batch // n_mb}: step {step_ms:.4f} ms (median "
+          f"of {LM_TRAIN_STEPS} after the warm-up, "
+          f"{min(secs[1:]) * 1e3:.4f}-{max(secs[1:]) * 1e3:.4f}; first "
+          f"{secs[0] * 1e3:.4f} ms), {tokens / step_ms * 1e3:.1f} tokens/s; "
+          f"losses {losses}; last grad_norm {float(m['grad_norm']):.4f}, lr "
+          f"{float(m['lr']):.3e}; peak allocation {peak / 2**30:.3f} GiB over "
+          f"the timed steps on {card}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{cfg.name}: a training loss is not finite")
+    b = feed()
+    profile_call(f"{cfg.name} one train step (seq {seq}, batch {batch}, "
+                 f"{n_mb} microbatches)", lambda: step(state, b), step_ms,
+                 host=False)
+
+
+def lm_remat_check(dev, card: str) -> None:
+    """Phase 19b: stablelm-1.6b at full width, one sequence of LM_REMAT's
+    length: the loss and gradients with each unit recomputed vs kept (the
+    loss bitwise, the gradients within LM_REMAT_GRAD_RTOL of each leaf's
+    max|g|), the peak allocation of each backward above its start (lower
+    with remat), and a train step's ms in each mode."""
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import (TrainConfig, loss_and_grads,
+                                          make_train_step)
+    from repro_torch.optim import adamw_init, tree_leaves
+    seq, batch = LM_REMAT
+    cfg = get_config("stablelm_1_6b")
+    params = draw_on_card(f"{cfg.name} (remat on vs off)", cfg, dev,
+                          tag="lm-train")
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    feed = {"tokens": torch.randint(0, cfg.vocab, (batch, seq + 1),
+                                    generator=g, device=dev)}
+    got = {}
+    for remat in (True, False):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, grads = loss_and_grads(params, cfg, feed, remat=remat)
+        torch.cuda.synchronize()
+        got[remat] = (loss, tree_leaves(grads),
+                      torch.cuda.max_memory_allocated() - base)
+        del grads
+    (l_on, g_on, p_on), (l_off, g_off, p_off) = got[True], got[False]
+    bitwise = bool(torch.equal(l_on, l_off))
+    rel = max(max_err(a, b)[1] for a, b in zip(g_on, g_off))
+    same = all(torch.equal(a, b) for a, b in zip(g_on, g_off))
+    del got, g_on, g_off
+    state = {"params": params, "opt": adamw_init(params)}
+    del params
+    ms = {}
+    for remat in (True, False):
+        step = make_train_step(cfg, TrainConfig(), remat=remat)
+        secs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, feed)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        ms[remat] = 1e3 * statistics.median(secs[1:])
+    print(f"[lm-train] {cfg.name} seq {seq} batch {batch}, remat on vs off: "
+          f"loss {float(l_on):.6f} vs {float(l_off):.6f} (bitwise {bitwise});"
+          f" gradients within {rel:.3e} of max|g| (tol "
+          f"{LM_REMAT_GRAD_RTOL:g}; bitwise {same}); backward peak "
+          f"{p_on / 2**30:.3f} GiB with remat vs {p_off / 2**30:.3f} GiB "
+          f"without, above its start; train step {ms[True]:.4f} ms vs "
+          f"{ms[False]:.4f} ms (median of 2 after one) on {card}")
+    if not (bitwise and rel <= LM_REMAT_GRAD_RTOL and p_on < p_off):
+        raise AssertionError("stablelm-1.6b: remat changed the loss or the "
+                             "gradients, or did not lower the peak")
+
+
+def lm_card_vs_cpu(arch: str, dev) -> None:
+    """Phase 19d for one config: each stage cut to CUT_UNITS units, the
+    weights drawn on the card and copied to the CPU, f32 compute: the loss
+    and every gradient leaf of ``loss_fn`` on the card against the
+    CPU's."""
+    import torch
+    from repro_torch.checkpoint.store import _flatten   # the leaves' paths
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import tree_leaves
+    full = get_config(arch)
+    cfg = cut_depth(full, CUT_UNITS)
+    label = f"{full.name} ({full.n_layers} -> {cfg.n_layers} blocks)"
+    on_card = draw_on_card(label, cfg, dev, tag="lm-train")
+    t0 = time.perf_counter()
+    on_cpu = T.tree_map(lambda a: a.cpu(), on_card)
+    cb, cs = LM_CARD_CPU_RUN
+    toks = torch.randint(0, cfg.vocab, (cb, cs + 1),
+                         generator=torch.Generator().manual_seed(SEED + 6))
+    with compute_dtype(torch.float32):
+        l_cpu, g_cpu = loss_and_grads(on_cpu, cfg, {"tokens": toks})
+        l_card, g_card = loss_and_grads(on_card, cfg,
+                                        {"tokens": toks.to(dev)})
+    rel_loss = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+    errs = [max_err(a.cpu(), b)[1]
+            for a, b in zip(tree_leaves(g_card), tree_leaves(g_cpu))]
+    worst = _flatten(g_cpu)[errs.index(max(errs))][0]
+    print(f"[lm-train] {label}, f32 compute, batch {cb} seq {cs}, card vs "
+          f"CPU: loss {float(l_card):.6f} vs {float(l_cpu):.6f} (rel "
+          f"{rel_loss:.3e}, tol {LM_CARD_CPU_LOSS_RTOL:g}); gradients: "
+          f"worst leaf {worst} {max(errs):.3e} of its max|g| (tol "
+          f"{LM_CARD_CPU_GRAD_RTOL:g}) over {len(errs)} leaves; "
+          f"{time.perf_counter() - t0:.3f} s with the copy and the CPU "
+          f"backward")
+    if not (rel_loss <= LM_CARD_CPU_LOSS_RTOL
+            and max(errs) <= LM_CARD_CPU_GRAD_RTOL):
+        raise AssertionError(f"{label}: training on the card disagrees with "
+                             f"the CPU")
+
+
+@contextlib.contextmanager
+def recorded_batches(log: dict):
+    """Record every token batch the CLI's ``TokenStream`` hands out,
+    keyed by step."""
+    from repro_torch import data
+
+    class Recording(data.TokenStream):
+        def batch_at(self, step, shard=0, n_shards=1):
+            out = super().batch_at(step, shard, n_shards)
+            log[step] = out.copy()
+            return out
+
+    old = data.TokenStream
+    data.TokenStream = Recording
+    try:
+        yield log
+    finally:
+        data.TokenStream = old
+
+
+def lm_cli_check(card: str) -> None:
+    """Phase 19e: ``launch.train --arch`` as a user runs it on the card,
+    uninterrupted; then the same run losing its worker at LM_CLI_FAIL_AT
+    (checkpoint at 10) and ``--resume``: the resumed run must read the
+    same token batches bit for bit and reach the uninterrupted run's
+    losses within LM_RESUME_RTOL."""
+    import tempfile
+    import numpy as np
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.runtime.recovery import WorkerLost
+    name = get_config("mamba2_130m").name
+    with tempfile.TemporaryDirectory(prefix="lm-train-") as root:
+        t0 = time.perf_counter()
+        with recorded_batches({}) as seen_a:
+            ref = train.main(LM_CLI + ["--ckpt-dir", f"{root}/a"])
+        t_ref = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        try:
+            with recorded_batches({}):
+                train.main(LM_CLI + ["--ckpt-dir", f"{root}/b"],
+                           inject_failure_at=LM_CLI_FAIL_AT)
+        except WorkerLost as e:
+            lost = str(e)
+        else:
+            raise AssertionError("the injected failure did not stop the run")
+        saved = latest_step(f"{root}/b/{name}")
+        with recorded_batches({}) as seen_c:
+            got = train.main(LM_CLI + ["--ckpt-dir", f"{root}/b",
+                                       "--resume"])
+        t_res = time.perf_counter() - t0
+    same_batches = (sorted(seen_c) == list(range(saved, ref.last)) and all(
+        np.array_equal(seen_c[s], seen_a[s]) for s in seen_c))
+    want = [m["loss"] for m in ref.metrics[saved:]]
+    have = [m["loss"] for m in got.metrics]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(have, want))
+    print(f"[lm-train] launch.train {' '.join(LM_CLI)}: {ref.last} steps in "
+          f"{t_ref:.3f} s, losses {[m['loss'] for m in ref.metrics]}; "
+          f"{lost} (last checkpoint {saved}), --resume ran steps "
+          f"{saved + 1}-{got.last} ({t_res:.3f} s with the lost run): the "
+          f"same token batches {same_batches}, losses within {rel:.3e} "
+          f"relative of the uninterrupted run's (tol {LM_RESUME_RTOL:g}; "
+          f"bitwise {have == want}); events {got.events} on {card}")
+    if not (saved == 10 and got.last == ref.last == 20 and same_batches
+            and len(have) == len(want) and rel <= LM_RESUME_RTOL):
+        raise AssertionError("the resumed run is not restart-exact")
+
+
+def lm_train_phase(dev, card: str) -> None:
+    """Phase 19: the LM training loop (module docstring); raises on any
+    failed check."""
+    import torch
+    t_phase = time.perf_counter()
+    reset_all_counts()
+    parts = [(f"{part} {run[0]}", lm_train_run, run + (dev, card))
+             for part, run in zip("ac", LM_TRAIN)]
+    parts.insert(1, ("b", lm_remat_check, (dev, card)))
+    parts += [(f"d {arch}", lm_card_vs_cpu, (arch, dev))
+              for arch in LM_CARD_CPU]
+    parts.append(("e", lm_cli_check, (card,)))
+    for name, fn, args in parts:
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.empty_cache()
+        print(f"[lm-train] 19{name} in {time.perf_counter() - t0:.3f} s")
+    counts = launch_counts()
+    print(f"[lm-train] kernel launches over phase 19: {counts}")
+    if any(counts.values()):
+        raise AssertionError(f"the LM training loop launched {counts}; its "
+                             f"path has no kernel (ssd_chunk has no "
+                             f"backward: loss_fn runs the plain version)")
+    print(f"[lm-train] phase 19 in {time.perf_counter() - t_phase:.3f} s")
 
 
 def main() -> int:
@@ -2962,7 +3273,9 @@ def main() -> int:
     decoder_phase(dev, card)
     # -- 18. MoE, MLA, RG-LRU, the prefix and the encoder-decoder --------
     zoo_phase(dev, card)
-    print(f"[main] phases 1-18 in {time.perf_counter() - t_main:.3f} s")
+    # -- 19. the LM training loop -------------------------------------------
+    lm_train_phase(dev, card)
+    print(f"[main] phases 1-19 in {time.perf_counter() - t_main:.3f} s")
     for row in rows:
         if row["name"] in served:
             row["serving_launches"] = served[row["name"]]

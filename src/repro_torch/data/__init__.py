@@ -1,4 +1,7 @@
-# Seeded synthetic data of the trainers (port of repro/data/synthetic.py).
-from .synthetic import image_task
+# Seeded synthetic data of the trainers (port of repro/data/): the image
+# task of the CNN trainers, the LM token stream and its sharded,
+# restart-exact pipeline.
+from .pipeline import ShardedDataPipeline
+from .synthetic import TokenStream, image_task
 
-__all__ = ["image_task"]
+__all__ = ["ShardedDataPipeline", "TokenStream", "image_task"]

@@ -1,24 +1,35 @@
-"""Training entry point (port of the ``--plan-net`` path of
-``repro/launch/train.py``).
+"""Training entry point (port of ``repro/launch/train.py``).
+
+``--arch <id>`` trains a language model of the registry end to end:
+config -> init on the device -> TokenStream pipeline -> train step
+(microbatched, each unit recomputed in the backward) -> CheckpointStore
+(async writes, the last two kept) under the TrainSupervisor (heartbeats,
+straggler log, restart-exact resume with ``--resume``).  Checkpoints go
+to ``--ckpt-dir``/<config name>, by default under the temporary
+directory.
+
+    python -m repro_torch.launch.train --arch stablelm_1_6b --smoke \
+        --steps 4 --batch 8 --seq 64 --device cpu [--resume]
 
 ``--plan-net <network>`` trains a bench network (core/networks.py)
 through the plan trainer: the network is mapped as the JAX package maps
 it (TetrisG-SDK on 64x64 arrays, a 2x2 macro grid), compiled to a
 chained NetworkPlan, and its kernels train through `execute_plan` with
 rematerialization (``--remat off|auto|<bytes>``) and gradient
-accumulation (``--accum K``) — `repro_torch.cnn.train.train_plan`.  It
-runs on the card unless ``--device cpu`` is given.
+accumulation (``--accum K``) — `repro_torch.cnn.train.train_plan`.
 
     python -m repro_torch.launch.train --plan-net cnn8 --remat auto \
         --steps 2 --batch 2 --accum 2 --device cpu
 
-The language-model path (``--arch``) is not ported yet (ROADMAP.md
-queue 1, item 6) and raises.
+Both paths run on the card unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
 import argparse
+import tempfile
 import time
+from pathlib import Path
+from typing import Any, List, NamedTuple, Optional
 
 
 def plan_net_mapping(name: str):
@@ -29,12 +40,33 @@ def plan_net_mapping(name: str):
                    "TetrisG-SDK", MacroGrid(2, 2))
 
 
-def main(argv=None):
+class LMRun(NamedTuple):
+    """What ``--arch`` returns: the final state, the last step, each
+    step's metrics (floats) and the supervisor's events."""
+    state: Any
+    last: int
+    metrics: List[dict]
+    events: List[str]
+
+
+def main(argv=None, *, inject_failure_at: Optional[int] = None):
+    """The CLI; ``inject_failure_at`` makes the ``--arch`` run lose its
+    worker at that step (``TrainSupervisor.run``'s fault injection, for
+    recovery drills: it raises ``WorkerLost``)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="stablelm_1_6b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced same-family config (CPU-trainable)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--ckpt-dir",
+                    default=str(Path(tempfile.gettempdir())
+                                / "repro_torch_ckpt"))
+    ap.add_argument("--save-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--plan-net", default=None,
                     help="train this bench network through the plan "
@@ -46,11 +78,59 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.plan_net is None:
-        raise NotImplementedError(
-            f"--arch {args.arch}: the language-model training loop is not "
-            f"ported yet (ROADMAP.md queue 1, item 6); use --plan-net")
-    return _plan_main(args)
+    if args.plan_net is not None:
+        return _plan_main(args)
+    return _arch_main(args, inject_failure_at)
+
+
+def _arch_main(args, inject_failure_at: Optional[int]) -> LMRun:
+    """The --arch path (module docstring)."""
+    import torch
+    from ..checkpoint import CheckpointStore
+    from ..configs import get_config
+    from ..data import ShardedDataPipeline, TokenStream
+    from ..device import resolve_device
+    from ..runtime import HeartbeatMonitor, TrainSupervisor
+    from .steps import TrainConfig, init_train_state, make_train_step
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    tc = TrainConfig(microbatches=args.microbatches, peak_lr=args.lr,
+                     warmup_steps=max(2, args.steps // 20),
+                     total_steps=args.steps)
+    step_fn = make_train_step(cfg, tc)
+
+    ts = TokenStream(vocab=cfg.vocab, seq_len=args.seq,
+                     global_batch=args.batch, seed=args.seed)
+    pipe = ShardedDataPipeline(ts)
+    store = CheckpointStore(Path(args.ckpt_dir) / cfg.name, keep=2,
+                            async_save=True, device=dev)
+    sup = TrainSupervisor(store=store, pipeline=pipe,
+                          monitor=HeartbeatMonitor(1),
+                          save_every=args.save_every)
+
+    def wrapped(state, tokens):
+        return step_fn(state, {"tokens": torch.as_tensor(tokens,
+                                                         device=dev)})
+
+    t0 = time.time()
+    log: List[dict] = []
+    fn = _metric_logger(wrapped, t0, log)
+    try:
+        if args.resume:
+            like = init_train_state(cfg, None, device="meta")
+            state, last = sup.resume(like, fn, steps=args.steps)
+        else:
+            gen = torch.Generator(device=dev).manual_seed(args.seed)
+            state = init_train_state(cfg, gen, dev)
+            state, last = sup.run(state, fn, steps=args.steps,
+                                  inject_failure_at=inject_failure_at)
+    finally:
+        store.wait()
+    print(f"done: {last} steps in {time.time()-t0:.1f}s; "
+          f"events={sup.events[-3:]}")
+    return LMRun(state, last,
+                 [{k: float(v) for k, v in m.items()} for m in log],
+                 sup.events)
 
 
 def _plan_main(args):
@@ -80,6 +160,24 @@ def _plan_main(args):
           f"{r.segments} segment(s), accum={r.accum}, "
           f"donated={r.donated})")
     return r, losses, step_times
+
+
+def _metric_logger(step_fn, t0, log: list, every: int = 10):
+    """``step_fn`` that appends each step's metrics to ``log`` and prints
+    the first step's and every ``every``-th."""
+    counter = {"n": 0}
+
+    def fn(state, batch):
+        state, metrics = step_fn(state, batch)
+        log.append(metrics)
+        counter["n"] += 1
+        if counter["n"] % every == 0 or counter["n"] == 1:
+            print(f"step {counter['n']:>5d}  "
+                  f"loss {float(metrics['loss']):.4f}  "
+                  f"gnorm {float(metrics['grad_norm']):.3f}  "
+                  f"({time.time()-t0:.0f}s)", flush=True)
+        return state, metrics
+    return fn
 
 
 if __name__ == "__main__":

@@ -4,9 +4,10 @@ and the weight
 initialisers over a ``torch.Generator`` (which takes the place of the
 JAX package's ``keygen``).
 
-The JAX package's ``norm_policy`` (bf16 norm chains, set only by its
-training launcher) is not ported: serving uses the default f32 norm.
-It waits for the LM training loop (ROADMAP.md queue 1, item 6)."""
+The JAX package's ``norm_policy`` (bf16 norm chains) is not ported:
+only its sharded step functions (``launch/shapes.py``) turn it on, and
+its train loop and serving use the default f32 norm, as the port does.
+It waits for meshes and sharding (ROADMAP.md queue 1, item 7)."""
 from __future__ import annotations
 
 import math

@@ -24,6 +24,7 @@ from typing import Any, Callable, Dict
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from . import attention as attn_lib
 from .common import (apply_rotary, cast, dense_init, embed_init, gelu,
@@ -534,16 +535,28 @@ def apply_block(x, p, spec: BlockSpec, cfg: ArchConfig, *, mode: str,
 # Stage / model forward
 # ---------------------------------------------------------------------------
 
+def _units(stage_p, n: int) -> list:
+    """The stage's per-unit params: views of the stacked leaves, cut by
+    one ``unbind`` a leaf, whose backward stacks the units' gradients
+    once (a select per unit would write a zero-filled stack per unit)."""
+    cols = [a.unbind(0) for a in tree_leaves(stage_p)]
+
+    def unit(u):
+        it = iter(cols)
+        return tree_map(lambda _: next(it)[u], stage_p)
+    return [unit(u) for u in range(n)]
+
+
 def run_stage(x, stage_p, stage: Stage, cfg: ArchConfig, *, mode: str,
               cache=None, pos=None, enc_out=None, cache_len=None,
-              plain: bool = False):
+              plain: bool = False, remat: bool = True):
     """The stage's units in order (``lax.scan`` in the JAX package):
     returns (x, caches stacked over ``n_units``, or None in train and
-    encode)."""
-    new_caches = []
-    for u in range(stage.n_units):
-        p_unit = tree_map(lambda a: a[u], stage_p)
-        c_unit = None if cache is None else tree_map(lambda a: a[u], cache)
+    encode).  In train mode with ``remat`` each unit runs under
+    ``torch.utils.checkpoint`` (``jax.checkpoint`` in the JAX package):
+    only the units' inputs are kept for the backward, which recomputes
+    each unit's forward."""
+    def unit_fn(x, p_unit, c_unit):
         ncs = []
         for i, spec in enumerate(stage.unit):
             x, nc = apply_block(x, p_unit[i], spec, cfg, mode=mode,
@@ -551,7 +564,17 @@ def run_stage(x, stage_p, stage: Stage, cfg: ArchConfig, *, mode: str,
                                 pos=pos, enc_out=enc_out,
                                 cache_len=cache_len, plain=plain)
             ncs.append(nc)
-        new_caches.append(tuple(ncs))
+        return x, tuple(ncs)
+
+    new_caches = []
+    for u, p_unit in enumerate(_units(stage_p, stage.n_units)):
+        c_unit = None if cache is None else tree_map(lambda a: a[u], cache)
+        if mode == "train" and remat:
+            x, ncs = torch.utils.checkpoint.checkpoint(
+                unit_fn, x, p_unit, c_unit, use_reentrant=False)
+        else:
+            x, ncs = unit_fn(x, p_unit, c_unit)
+        new_caches.append(ncs)
     if mode in ("train", "encode"):
         return x, None
     return x, tree_map(lambda *a: torch.stack(a), *new_caches)
@@ -573,13 +596,13 @@ def _run_encoder(params, cfg, enc_embeds):
     x = enc_embeds + cast(sinusoidal_positions(
         enc_embeds.shape[1], cfg.d_model, device=enc_embeds.device))[None]
     x, _ = run_stage(x, params["enc_stages"][0], _enc_stage(cfg), cfg,
-                     mode="encode")
+                     mode="encode", remat=False)
     return _norm(x, params["enc_norm"], cfg)
 
 
 def forward(params, cfg: ArchConfig, *, tokens, prefix_embeds=None,
             enc_embeds=None, mode: str = "train", cache=None, pos=None,
-            cache_len=None, plain: bool = False):
+            cache_len=None, plain: bool = False, remat: bool = True):
     """Unified forward.
 
     train:   tokens (B,S) [+ prefix (B,P,D) or encoder (B,Se,D) embeds]
@@ -616,7 +639,7 @@ def forward(params, cfg: ArchConfig, *, tokens, prefix_embeds=None,
         x, nc = run_stage(x, params["stages"][si], st, cfg, mode=mode,
                           cache=None if cache is None else cache[si],
                           pos=pos, enc_out=enc_out, cache_len=cache_len,
-                          plain=plain)
+                          plain=plain, remat=remat)
         new_caches.append(nc)
     if mode == "prefill":
         # only the last position's logits are consumed (next-token)

@@ -15,7 +15,9 @@ sdk block modes; the decoder attention family, which has no kernel:
 its prefill/decode consistency in f32 and the card against the CPU at
 the smoke configs, and ``attention`` card against CPU; and the same for
 MoE, MLA, RG-LRU, the vision prefix and the encoder-decoder, with
-``moe.route``'s order on ties on the card.  Marked
+``moe.route``'s order on ties on the card; the LM train step on the card
+against the CPU (no kernel launched) and a checkpoint restored onto the
+card.  Marked
 ``cuda``: without a CUDA device each test skips.  On the card:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
@@ -933,3 +935,81 @@ def test_route_tie_order_on_the_card(cuda, e, k):
     assert torch.equal(disp_card.cpu(), disp)
     assert torch.equal(comb_card.cpu() != 0, comb != 0)
     assert float((comb_card.cpu() - comb).abs().max()) <= 2e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["stablelm_1_6b", "mixtral_8x7b",
+                                  "mamba2_130m", "recurrentgemma_9b",
+                                  "internvl2_26b", "whisper_base"])
+def test_lm_train_step_on_the_card(cuda, arch, monkeypatch):
+    """The LM train step at the smoke configs, f32 compute (TF32 off), the
+    weights drawn once on the CPU: a step of two microbatches on the card
+    against the same step on the CPU (loss and gradient norm within 1e-5
+    relative, the Adam moments within 1e-4 of max|m|), ``loss_fn``'s
+    gradients within 1e-4 of each leaf's max|g|, remat on vs off within
+    1e-6, and no kernel launched (``loss_fn`` runs the plain versions)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import common
+    from repro_torch.optim import tree_leaves, tree_map
+    monkeypatch.setattr(common, "COMPUTE_DTYPE", torch.float32)
+    cfg = get_config(arch, smoke=True)
+    state = steps.init_train_state(cfg, torch.Generator().manual_seed(0),
+                                   "cpu")
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (4, 33), generator=g)}
+    if cfg.n_prefix:
+        batch["prefix_embeds"] = torch.randn((4, cfg.n_prefix, cfg.d_model),
+                                             generator=g)
+    if cfg.kind == "encdec":
+        batch["enc_embeds"] = torch.randn((4, 24, cfg.d_model), generator=g)
+    on_card = tree_map(lambda a: a.to(cuda), state)
+    batch_card = {k: v.to(cuda) for k, v in batch.items()}
+    step = steps.make_train_step(cfg, steps.TrainConfig(
+        microbatches=2, warmup_steps=2, total_steps=10))
+    _reset_every()
+    new_card, m_card = step(on_card, batch_card)
+    loss, grads = steps.loss_and_grads(on_card["params"], cfg, batch_card)
+    loss_off, grads_off = steps.loss_and_grads(on_card["params"], cfg,
+                                               batch_card, remat=False)
+    torch.cuda.synchronize()
+    assert not any(_every_launch().values())
+    new_cpu, m_cpu = step(state, batch)
+    for k in ("loss", "grad_norm"):
+        assert abs(float(m_card[k]) - float(m_cpu[k])) <= \
+            1e-5 * abs(float(m_cpu[k]))
+    for a, b in zip(tree_leaves(new_card["opt"]["m"]),
+                    tree_leaves(new_cpu["opt"]["m"])):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    _, grads_cpu = steps.loss_and_grads(state["params"], cfg, batch)
+    assert abs(float(loss) - float(loss_off)) <= 1e-6 * abs(float(loss))
+    for a, b, c in zip(tree_leaves(grads), tree_leaves(grads_cpu),
+                       tree_leaves(grads_off)):
+        scale = float(b.abs().max())
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * scale
+        assert float((a - c).abs().max()) <= 1e-6 * scale
+
+
+@pytest.mark.cuda
+def test_checkpoint_restores_onto_the_card(cuda, tmp_path):
+    """A train state on the card through ``CheckpointStore`` (async): the
+    snapshot is taken before ``save`` returns, the restore lands on the
+    card bit for bit, from ``meta`` shapes."""
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.optim import tree_leaves
+    cfg = get_config("stablelm_1_6b", smoke=True)
+    state = steps.init_train_state(
+        cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    want = [a.clone() for a in tree_leaves(state)]
+    store = CheckpointStore(tmp_path, async_save=True, device=cuda)
+    store.save(3, state, extra={"data_step": 3})
+    for a in tree_leaves(state):
+        a.add_(1)
+    store.wait()
+    got, step, extra = store.restore_latest(
+        steps.init_train_state(cfg, None, "meta"))
+    assert step == 3 and extra == {"data_step": 3}
+    for a, b in zip(tree_leaves(got), want):
+        assert a.device.type == "cuda" and torch.equal(a, b)

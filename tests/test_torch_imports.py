@@ -35,7 +35,8 @@ def test_no_jax_or_reference_imports():
             "configs/densenet40.py", "configs/mobilenet.py",
             "models/attention.py", "configs/qwen1_5_32b.py",
             "configs/deepseek_67b.py",
-            "configs/mistral_large_123b.py"} <= names
+            "configs/mistral_large_123b.py", "checkpoint/store.py",
+            "data/pipeline.py", "optim/compression.py"} <= names
     bad = [(f.relative_to(ROOT), name) for f in files
            for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "repro")]
@@ -58,7 +59,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.cnn.train, repro_torch.launch.train, "
             "repro_torch.launch.fleet, repro_torch.launch.replica, "
             "repro_torch.exec.constants, repro_torch.runtime, "
-            "repro_torch.tune, repro_torch.core.simulator\n"
+            "repro_torch.tune, repro_torch.core.simulator, "
+            "repro_torch.checkpoint, repro_torch.data.pipeline, "
+            "repro_torch.optim.compression\n"
             "from repro_torch.configs import CNN_IDS, get_config\n"
             "get_config('stablelm_1_6b'); get_config('whisper_base')\n"
             "[get_config(c) for c in CNN_IDS]\n"
@@ -75,6 +78,7 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_entry_points_need_a_card(monkeypatch):
+    from repro_torch.checkpoint import restore_checkpoint
     from repro_torch.cnn import kernels_from_numpy, params_from_numpy
     from repro_torch.cnn.models import cnn8_config
     from repro_torch.cnn.train import train_cnn, train_plan
@@ -104,6 +108,9 @@ def test_entry_points_need_a_card(monkeypatch):
                  lambda: train_plan(net, steps=1, batch=2),
                  lambda: train_cnn(cnn8_config(), steps=1),
                  lambda: train.main(["--plan-net", "cnn8", "--steps", "1"]),
+                 lambda: train.main(["--arch", "stablelm_1_6b", "--smoke",
+                                     "--steps", "1"]),
+                 lambda: restore_checkpoint("unused", {}),
                  lambda: serve_cnn.serve_dynamic(net, [(0.0, 1)],
                                                  max_batch=2,
                                                  max_delay_ms=1.0),

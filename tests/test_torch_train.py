@@ -404,7 +404,7 @@ def test_apply_cnn_sdk_forward_only():
 
 # ------------------------------------------------------------------ CLI
 
-def test_launch_train_plan_net_cpu(capsys):
+def test_launch_train_plan_net_cpu(capsys, tmp_path):
     from repro_torch.launch import train as tlaunch
     r, losses, times = tlaunch.main(
         ["--plan-net", "cnn8", "--remat", "auto", "--steps", "2", "--batch",
@@ -415,5 +415,8 @@ def test_launch_train_plan_net_cpu(capsys):
     assert "step     1  loss" in out and "step     2  loss" in out
     assert "segment(s), accum=2, donated=False)" in out and "peak~" in out
     assert r.segments > 1 and np.isfinite(r.final_loss)
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        tlaunch.main(["--arch", "stablelm_1_6b"])
+    # without --plan-net the same CLI trains the language model
+    run = tlaunch.main(["--arch", "stablelm_1_6b", "--smoke", "--steps", "1",
+                        "--batch", "2", "--seq", "8", "--ckpt-dir",
+                        str(tmp_path), "--device", "cpu"])
+    assert run.last == 1 and np.isfinite(run.metrics[0]["loss"])
