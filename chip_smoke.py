@@ -236,7 +236,28 @@ Phases, each of which raises on failure (exit code != 0):
        resumed run reads the same token batches bit for bit and its
        losses are within 1e-4 relative of the uninterrupted run's
        (bitwise printed);
-20. a ``{"kernels": [...]}`` line: per kernel its launches, error, time
+20. the CIM macro mesh (no kernel; every launch count 0 over the phase):
+    cnn8 mapped by TetrisG-SDK at full width on a 2x2 grid, batch 8:
+    a) with the default devices (one card) ``serving_mesh_for`` is None,
+       the tuner's splits are (None,) and ``serve_cnn.main --grid 2x2``
+       prints ``mesh=vmap``;
+    b) a mesh over ``[cuda:0] * 8`` (data 4 x row 2 x col 1, the net's
+       common 2x1 sub-grid): the plan runs every layer over it, and the
+       forward is held to the single-device plan (1e-6 of max|y|), to
+       ``execute_oracle`` (1e-4) and to the same mesh over ``[cpu] * 8``
+       (1e-5), two runs bitwise;
+    c) ``serve`` at request batch 6 (plan batch 8, the six rows vs the
+       oracle), ``serve_dynamic`` (tiers multiples of the data axis) and
+       a cnn8 + Inception-prefix fleet on ``fleet_mesh_for``'s mesh,
+       every request served once;
+    d) ``train_plan`` 3 steps over the mesh vs without (a step of 8 with
+       6 examples: losses 1e-5 relative, first-step gradients 1e-6 of
+       max|g|);
+    e) a cnn8 search over the nine splits of the repeated card (the
+       splits measured and the winner printed, not stored);
+    f) the sharded and single-device forwards in interleaved rounds —
+       one card, the shards serialised: no multi-GPU time;
+21. a ``{"kernels": [...]}`` line: per kernel its launches, error, time
     at its path's shapes, the plain version's time, the least time the
     card could take (its bound) and the library call's time (and, for
     the kernels phases 15 and 16 run, their launches there);
@@ -3036,6 +3057,293 @@ def lm_train_phase(dev, card: str) -> None:
     print(f"[lm-train] phase 19 in {time.perf_counter() - t_phase:.3f} s")
 
 
+#: phase 20, the CIM macro mesh: cnn8 mapped by TetrisG-SDK at full width
+#: on a 2x2 macro grid (its common sub-grid is 2x1), served at batch 8
+#: over MESH_ENTRIES repeated entries of the one card; the shards run one
+#: after another on it, so no time here is a multi-GPU time
+MESH_GRID = (2, 2)
+MESH_ENTRIES = 8
+#: sharded vs single-device on the card: the cross-row sum split in two
+#: (relative to max|y|); the same mesh on the card vs on the CPU
+MESH_RTOL = 1e-6
+MESH_CPU_RTOL = 1e-5
+#: 20c: the ragged request batch served on the mesh; 20d the trainer's
+#: (batch, microbatches, examples, steps): 6 examples in a step of 8, so
+#: the second microbatch carries two zero-weight rows
+MESH_REQUEST = 6
+MESH_TRAIN = (8, 2, 6, 3)
+MESH_TRAIN_LOSS_RTOL = 1e-5
+MESH_TRAIN_GRAD_RTOL = 1e-6
+MESH_TIME_ITERS, MESH_TIME_ROUNDS = 10, 5
+
+
+def mesh_default(cnn8m, dev) -> None:
+    """20a: with the default devices (the one visible card) there is no
+    mesh: `serving_mesh_for` gives None, the tuner's splits are (None,)
+    and ``serve_cnn.main --grid 2x2`` prints ``mesh=vmap``."""
+    import contextlib
+    import io
+    from repro_torch import tune
+    from repro_torch.launch import serve_cnn
+    mesh = serve_cnn.serving_mesh_for(cnn8m, BATCH)
+    splits = tune.space.mesh_split_candidates(cnn8m, BATCH, device=dev)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        s = serve_cnn.main(["--net", "cnn8", "--grid", "x".join(
+            map(str, MESH_GRID)), "--batch", str(BATCH), "--steps", "3",
+            "--warmup", "1", "--seed", str(SEED)])
+    line = next((ln for ln in out.getvalue().splitlines()
+                 if ln.startswith("device=")), "")
+    print(f"[mesh] 20a one card: serving_mesh_for -> {mesh}, "
+          f"mesh_split_candidates -> {splits}; serve_cnn: {line}")
+    if mesh is not None or splits != (None,) or "mesh=vmap" not in line \
+            or s.plan.mesh_axes is not None:
+        raise AssertionError("one card must give no mesh (mesh=vmap)")
+
+
+def mesh_forward(cnn8m, devs, dev, card: str):
+    """20b: the virtual mesh over the repeated card: its shape, the plan's
+    per-layer mesh decision, the forward vs the single-device plan, the
+    oracle and the same mesh over the CPU, and two runs bit for bit.
+    Returns (mesh, plan, kernels, input, vmap plan)."""
+    import torch
+    from repro_torch.exec import compile_plan, execute_oracle, execute_plan
+    from repro_torch.launch import mesh as meshlib, serve_cnn
+    grid = meshlib.net_macro_grid(cnn8m)
+    mesh = meshlib.make_serving_mesh(*grid, BATCH, devices=devs)
+    print(f"[mesh] 20b cnn8 sub-grids {[(m.sub_grid.r, m.sub_grid.c) for m in cnn8m.layers]}"
+          f", common {grid}: mesh {mesh.shape} over {MESH_ENTRIES} x "
+          f"{devs[0]}")
+    if mesh.shape != {"data": 4, "row": 2, "col": 1}:
+        raise AssertionError(f"unexpected mesh {mesh.shape}")
+    plan = compile_plan(cnn8m, executor_policy="mapped", mesh=mesh,
+                        batch=BATCH, device=dev)
+    want = [m.sub_grid.r % mesh.shape["row"] == 0
+            and m.sub_grid.c % mesh.shape["col"] == 0 for m in cnn8m.layers]
+    used = [lp.use_mesh for lp in plan.layers]
+    print(f"[mesh] {plan.describe()}; use_mesh {used}")
+    if used != want or not all(used):
+        raise AssertionError(f"use_mesh {used} != the layers the sub-grid "
+                             f"divides {want}")
+    ks, xh = serve_cnn.serving_inputs(cnn8m, BATCH, SEED, dev)
+    x = torch.as_tensor(xh, device=dev)
+    vplan = compile_plan(cnn8m, executor_policy="mapped", batch=BATCH,
+                         device=dev)
+    y = execute_plan(plan, ks, x, mesh=mesh)
+    y2 = execute_plan(plan, ks, x, mesh=mesh)
+    yv = execute_plan(vplan, ks, x)
+    ref = execute_oracle(plan, ks, x)
+    host = meshlib.make_serving_mesh(*grid, BATCH,
+                                     devices=[torch.device("cpu")] * 8)
+    hplan = compile_plan(cnn8m, executor_policy="mapped", mesh=host,
+                         batch=BATCH, device="cpu")
+    yc = execute_plan(hplan, [k.cpu() for k in ks], x.cpu(), mesh=host)
+    torch.cuda.synchronize()
+    checks = [("vs the single-device plan", max_err(y, yv), MESH_RTOL),
+              ("vs execute_oracle", max_err(y, ref), FORWARD_RTOL),
+              ("card vs the same mesh over [cpu] * 8",
+               max_err(y.cpu(), yc), MESH_CPU_RTOL)]
+    bitwise = bool(torch.equal(y, y2))
+    for label, (err, rel, scale), tol in checks:
+        print(f"[mesh] forward {label}: max_abs_err={err:.3e} rel={rel:.3e}"
+              f" (tol {tol:g} of max|y|={scale:.3f})")
+    print(f"[mesh] two sharded runs bitwise equal: {bitwise}; output "
+          f"{tuple(y.shape)} finite: {bool(torch.isfinite(y).all())}")
+    if not (bitwise and torch.isfinite(y).all()
+            and all(rel <= tol for _, (_, rel, _), tol in checks)):
+        raise AssertionError("the sharded forward disagrees")
+    return mesh, plan, ks, x, vplan
+
+
+def mesh_serving(cnn8m, incep, mesh, devs, dev, card: str) -> None:
+    """20c: ``serve`` at a ragged request batch on the mesh (pad-and-mask
+    vs the oracle), a short ``serve_dynamic`` whose tiers are multiples
+    of the data axis, and a two-model ``serve_fleet`` on
+    ``fleet_mesh_for``'s one mesh; every request served once."""
+    import torch
+    from repro_torch.exec import execute_oracle, execute_plan
+    from repro_torch.launch import batching, fleet, mesh as meshlib
+    from repro_torch.launch import serve_cnn
+    s = serve_cnn.serve(cnn8m, MESH_REQUEST, 5, warmup=1, mesh=mesh,
+                        seed=SEED, device=dev)
+    ks, xh = serve_cnn.serving_inputs(cnn8m, MESH_REQUEST, SEED, dev)
+    x = torch.zeros((s.plan_batch,) + xh.shape[1:], device=dev)
+    x[:MESH_REQUEST] = torch.as_tensor(xh, device=dev)
+    y = execute_plan(s.plan, ks, x, mesh=mesh)[:MESH_REQUEST]
+    ref = execute_oracle(s.plan, ks, x)[:MESH_REQUEST]
+    err, rel, scale = max_err(y, ref)
+    print(f"[mesh] 20c serve request batch {MESH_REQUEST} -> plan batch "
+          f"{s.plan_batch} on {s.plan.mesh_axes}: {s.s_per_batch * 1e3:.4f}"
+          f" ms/batch ({s.images_per_s:.1f} images/s, "
+          f"{s.padded_images_per_s:.1f} padded) on {card}, one card, "
+          f"shards serialised; request rows vs oracle max_abs_err="
+          f"{err:.3e} rel={rel:.3e} (tol {FORWARD_RTOL:g} of "
+          f"max|y|={scale:.3f})")
+    if s.plan_batch != meshlib.pad_to_data_axis(MESH_REQUEST, mesh) \
+            or s.plan_batch != BATCH or rel > FORWARD_RTOL:
+        raise AssertionError("ragged serving on the mesh failed")
+    reqs = serve_cnn.poisson_arrivals(16, 0.0, 4, seed=SEED)
+    d = serve_cnn.serve_dynamic(cnn8m, reqs, max_batch=BATCH,
+                                max_delay_ms=2.0, mesh=mesh, warmup=1,
+                                seed=SEED, device=dev)
+    tiers = tuple(d.tiers)
+    print(f"[mesh] serve_dynamic tiers {tiers} (data axis "
+          f"{meshlib.data_axis_size(mesh)}): {d.request_images} request "
+          f"images of {sum(r for _, r in reqs)}, {d.padded_images} padded, "
+          f"{d.images_per_s:.1f} images/s on {card}, one card, shards "
+          f"serialised")
+    if any(t % meshlib.data_axis_size(mesh) for t in tiers) \
+            or tiers != batching.batch_tiers(BATCH, mesh) \
+            or d.request_images != sum(r for _, r in reqs):
+        raise AssertionError("dynamic serving on the mesh failed")
+    maps = {"cnn8": cnn8m, "inception": fleet.chainable_prefix(incep)}
+    fmesh = fleet.fleet_mesh_for(maps, 4, devices=devs)
+    config = fleet.FleetConfig(models=tuple(
+        fleet.ModelSpec(n, max_batch=4, max_delay_s=0.002) for n in maps))
+    trace = fleet.mixed_poisson_trace(tuple(maps), 16, 0.0, 4, seed=SEED)
+    stats, _ = fleet.serve_fleet(maps, config, trace, mesh=fmesh, warmup=1,
+                                 seed=SEED, device=dev)
+    sched = fleet.FleetScheduler(config, mesh=fmesh)
+    want = sum(r for _, _, r in trace)
+    print(f"[mesh] fleet cnn8 + inception prefix on fleet_mesh_for "
+          f"{fmesh.shape}: tiers {sched.tiers}; {stats.request_images} "
+          f"request images of {want}, shared_constants="
+          f"{stats.shared_constants}, {stats.images_per_s:.1f} images/s on "
+          f"{card}, one card, shards serialised")
+    if stats.request_images != want or any(
+            t % meshlib.data_axis_size(fmesh)
+            for ts in sched.tiers.values() for t in ts):
+        raise AssertionError("fleet serving on the mesh failed")
+
+
+def mesh_training(cnn8m, mesh, dev) -> None:
+    """20d: ``train_plan`` over the mesh vs without it, the same padded
+    step on both: losses within MESH_TRAIN_LOSS_RTOL relative and the
+    first step's gradients within MESH_TRAIN_GRAD_RTOL of max|g|."""
+    import numpy as np
+    from repro_torch.cnn import train as ttrain
+    batch, accum, n_train, steps = MESH_TRAIN
+    kw = dict(batch=batch, accum=accum, n_train=n_train,
+              executor_policy="mapped", device=dev)
+    grads = []
+    for msh in (mesh, None):
+        tr = ttrain.plan_training(cnn8m, mesh=msh, **kw)
+        xb, yb, mask = tr.batch_at(0)
+        _, g = ttrain._accum_grads(tr.loss_sum, tr.params, xb, yb, mask)
+        grads.append(g["kernels"] + [g["head"]])
+    names = [f"kernel {m.layer.name}" for m in cnn8m.layers] + ["head"]
+    worst, leaf = max((max_err(a, b)[1], n)
+                      for a, b, n in zip(*grads, names))
+    losses, times = {}, {}
+    for name, msh in (("mesh", mesh), ("none", None)):
+        losses[name], times[name] = [], []
+        ttrain.train_plan(cnn8m, steps=steps, mesh=msh, losses=losses[name],
+                          step_times=times[name], **kw)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["mesh"],
+                                                  losses["none"]))
+    print(f"[mesh] 20d train_plan cnn8 batch {batch} accum {accum}, "
+          f"{n_train} examples ({int(mask.sum())} valid of {batch} in step"
+          f" 0): losses mesh {losses['mesh']} vs none {losses['none']} "
+          f"(max rel {rel:.3e}, tol {MESH_TRAIN_LOSS_RTOL:g}); first-step "
+          f"gradients max rel {worst:.3e} ({leaf}; tol "
+          f"{MESH_TRAIN_GRAD_RTOL:g} of max|g|); step ms mesh "
+          f"{np.median(times['mesh'][1:]) * 1e3:.4f}, none "
+          f"{np.median(times['none'][1:]) * 1e3:.4f}")
+    if rel > MESH_TRAIN_LOSS_RTOL or worst > MESH_TRAIN_GRAD_RTOL:
+        raise AssertionError("training over the mesh disagrees")
+
+
+def mesh_tuner(cnn8m, devs, dev) -> None:
+    """20e: a fixed cnn8 search over the mesh splits of the repeated card
+    (mapped executor, lookahead 1, one candidate per split); the splits
+    measured and the winner printed.  Not stored."""
+    from repro_torch import tune
+    splits = tune.space.mesh_split_candidates(cnn8m, BATCH, devs)
+    policy = ("mapped",) * len(cnn8m.layers)
+    space = tuple(tune.Candidate(policy=policy, lookahead=1, mesh_split=s)
+                  for s in splits)
+    base = tune.Candidate(policy=policy, lookahead=1,
+                          mesh_split=tune.baseline_candidate(
+                              cnn8m, batch=BATCH, device=dev,
+                              devices=devs).mesh_split)
+    budget = tune.TuneBudget(shortlist=len(space), rounds=2, eta=2,
+                             max_rounds=4, warmup=1)
+    t0 = time.perf_counter()
+    res = tune.autotune(cnn8m, batch=BATCH, device=dev, devices=devs,
+                        space=space, baseline=base, budget=budget,
+                        force=True, store=False)
+    measured = sorted({str(t.candidate.mesh_split or "vmap")
+                       for t in res.trials})
+    final = {str(t.candidate.mesh_split or "vmap"): round(t.median_s * 1e3, 4)
+             for t in res.trials if t.rounds == res.config.rounds}
+    print(f"[mesh] 20e search over {len(splits)} splits {splits} in "
+          f"{time.perf_counter() - t0:.3f} s ({res.measurements} measured "
+          f"steps): measured {measured}; last stage medians ms {final}; "
+          f"winner {res.config.candidate.mesh_split or 'vmap'} "
+          f"{res.config.median_s * 1e3:.4f} ms vs baseline "
+          f"{base.mesh_split} {res.config.baseline_s * 1e3:.4f} ms (one "
+          f"card, shards serialised)")
+    if len(measured) != len(splits):
+        raise AssertionError("the search did not measure every split")
+
+
+def mesh_times(mesh, plan, ks, x, vplan, card: str) -> None:
+    """20f: the sharded and single-device forwards in interleaved rounds
+    (median per-call ms, host included)."""
+    from repro_torch.exec import execute_plan
+    fns = {"sharded": lambda: execute_plan(plan, ks, x, mesh=mesh),
+           "vmap": lambda: execute_plan(vplan, ks, x)}
+    times = {n: [] for n in fns}
+    for _ in range(MESH_TIME_ROUNDS):
+        for n, fn in fns.items():
+            times[n].append(call_ms(fn, MESH_TIME_ITERS, warmup=1))
+    med = {n: sorted(t)[len(t) // 2] for n, t in times.items()}
+    print(f"[mesh] 20f cnn8 batch {BATCH} forward, one card, shards "
+          f"serialised: sharded {med['sharded']:.4f} ms, single-device "
+          f"{med['vmap']:.4f} ms, ratio {med['sharded'] / med['vmap']:.3f} "
+          f"(medians of {MESH_TIME_ROUNDS} interleaved rounds of "
+          f"{MESH_TIME_ITERS} calls) on {card}")
+
+
+def mesh_phase(dev, card: str) -> None:
+    """Phase 20: the CIM macro mesh (module docstring); raises on any
+    failed check."""
+    import torch
+    from repro_torch.core import ArrayConfig, MacroGrid
+    from repro_torch.launch import serve_cnn
+    t_phase = time.perf_counter()
+    reset_all_counts()
+    torch.cuda.reset_peak_memory_stats()
+    arr = ArrayConfig(512, 512)
+    cnn8m, _ = serve_cnn.map_for_serving("cnn8", arr, "TetrisG-SDK",
+                                         grid=MacroGrid(*MESH_GRID))
+    incep, _ = serve_cnn.map_for_serving("inception", arr, "TetrisG-SDK",
+                                         grid=MacroGrid(*MESH_GRID))
+    devs = [torch.device("cuda", 0)] * MESH_ENTRIES
+    t0 = time.perf_counter()
+    mesh_default(cnn8m, dev)
+    print(f"[mesh] 20a in {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    mesh, plan, ks, x, vplan = mesh_forward(cnn8m, devs, dev, card)
+    print(f"[mesh] 20b in {time.perf_counter() - t0:.3f} s")
+    parts = (("c", mesh_serving, (cnn8m, incep, mesh, devs, dev, card)),
+             ("d", mesh_training, (cnn8m, mesh, dev)),
+             ("e", mesh_tuner, (cnn8m, devs, dev)),
+             ("f", mesh_times, (mesh, plan, ks, x, vplan, card)))
+    for name, fn, args in parts:
+        t0 = time.perf_counter()
+        fn(*args)
+        print(f"[mesh] 20{name} in {time.perf_counter() - t0:.3f} s")
+    counts = launch_counts()
+    print(f"[mesh] 20g kernel launches over phase 20: {counts}")
+    if any(counts.values()):
+        raise AssertionError(f"the mesh phase launched {counts}; the "
+                             f"mapped executor's path has no kernel")
+    print(f"[mesh] phase 20 in {time.perf_counter() - t_phase:.3f} s, peak "
+          f"allocation {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
+          f"on {card}")
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -3275,7 +3583,9 @@ def main() -> int:
     zoo_phase(dev, card)
     # -- 19. the LM training loop -------------------------------------------
     lm_train_phase(dev, card)
-    print(f"[main] phases 1-19 in {time.perf_counter() - t_main:.3f} s")
+    # -- 20. the CIM macro mesh ---------------------------------------------
+    mesh_phase(dev, card)
+    print(f"[main] phases 1-20 in {time.perf_counter() - t_main:.3f} s")
     for row in rows:
         if row["name"] in served:
             row["serving_launches"] = served[row["name"]]

@@ -111,8 +111,8 @@ def restore_checkpoint(directory, like, *, step: Optional[int] = None,
     ``resolve_device(device)`` in its stored dtype, step, extra)."""
     if shardings is not None:
         raise NotImplementedError(
-            "restoring onto a mesh (shardings) waits for meshes and "
-            "sharding (ROADMAP.md queue 1, item 7)")
+            "restoring onto a mesh (shardings) waits for the LM "
+            "production mesh (ROADMAP.md queue 1, item 7b)")
     dev = resolve_device(device)
     directory = Path(directory)
     if step is None:

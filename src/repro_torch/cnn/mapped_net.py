@@ -1,5 +1,5 @@
 """Macro-parallel mapped-network executor: the ``mapped`` executor (port
-of the single-device part of ``repro/cnn/mapped_net.py``).
+of ``repro/cnn/mapped_net.py``).
 
 ``TileMapping.cycles`` assumes a grid (r, c) runs ``r`` channel passes and
 ``c`` oc passes of every window load concurrently:
@@ -10,15 +10,18 @@ This module executes exactly that schedule.  Per tile, the
 (AR_c x AC_c) pass matrix is covered by ``ceil(AR_c/r) * ceil(AC_c/c)``
 sequential *super-steps*; within a super-step the (r x c) block of array
 passes runs as one macro-grid step — one batched einsum over the
-explicit (row, col) macro axes on one device.  Groups follow
-``LayerMapping.group_split``: ``gr*gc`` congruent groups run concurrently
-(batched through the group axis), remaining groups time-multiplex as
-``group_rounds`` sequential rounds.
+explicit (row, col) macro axes on one device, or, on a ("row", "col")
+device mesh (`launch.mesh.make_macro_mesh`) whose axes divide the
+sub-grid, one product per mesh coordinate on that coordinate's device,
+with the cross-row partial sums added on the input's device
+(`launch.sharding.macro_pass_specs`).  A leading "data" mesh axis splits
+the batch as well.  Groups follow ``LayerMapping.group_split``: ``gr*gc``
+congruent groups run concurrently (batched through the group axis),
+remaining groups time-multiplex as ``group_rounds`` sequential rounds.
 
 The *executed* step count is derived from the same host-side structures
 the executor iterates and is asserted equal to ``LayerMapping.cycles``
-for every layer (:func:`check_steps`).  The device-mesh path of the JAX
-package (``shard_map`` over ("data", "row", "col")) is not ported yet.
+for every layer (:func:`check_steps`, :func:`assert_steps_match`).
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.types import LayerMapping, MacroGrid, NetworkMapping, TileMapping
+from ..launch.sharding import macro_mesh_fits, macro_pass_specs
 from .cim_conv import (_long, build_weight_matrix, gather_patches,
                        kept_writes, placement_groups)
 
@@ -93,6 +97,10 @@ def executed_steps(mapping: LayerMapping) -> int:
     return layer_schedule(mapping).steps
 
 
+def network_schedule(net: NetworkMapping) -> Tuple[LayerSchedule, ...]:
+    return tuple(layer_schedule(m) for m in net.layers)
+
+
 def check_steps(mapping: LayerMapping) -> None:
     """Raise unless the executor's schedule matches the mapping's cycle
     count — the per-layer half of the steps == cycles contract."""
@@ -104,19 +112,102 @@ def check_steps(mapping: LayerMapping) -> None:
             f"rounds {s.group_rounds})")
 
 
+def assert_steps_match(net: NetworkMapping) -> None:
+    """Executed grid steps == analytical cycle count for every layer —
+    the Fig 20 speed-ups are executed, not only counted."""
+    for m in net.layers:
+        check_steps(m)
+
+
 # ---------------------------------------------------------------------------
 # One macro-grid super-step
 # ---------------------------------------------------------------------------
 
-def _macro_step(p_blk: torch.Tensor, w_blk: torch.Tensor) -> torch.Tensor:
+def _macro_products(p_blk: torch.Tensor, w_blk: torch.Tensor
+                    ) -> torch.Tensor:
+    """Each macro's array pass: (sub_r, sub_c, b, g, N, Po) — row r's
+    patch block against macro (r, c)'s weight block."""
+    return torch.einsum("rbgnk,rcgko->rcbgno", p_blk, w_blk)
+
+
+def _row_sum(parts) -> torch.Tensor:
+    """The macro rows' partial products added in ascending row order —
+    the one order both the batched and the sharded step use."""
+    acc = None
+    for part in parts:
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def _macro_grid(p_blk: torch.Tensor, w_blk: torch.Tensor) -> torch.Tensor:
+    """The (r x c) block of array passes on one device: each macro's
+    product, summed over the block's rows."""
+    return _row_sum(_macro_products(p_blk, w_blk))
+
+
+def _shard(t: torch.Tensor, spec, mesh, coord: dict) -> torch.Tensor:
+    """The block of ``t`` at mesh coordinate ``coord``: dimension i
+    split evenly over mesh axis ``spec[i]``."""
+    for dim, axis in enumerate(spec):
+        size = t.shape[dim] // mesh.shape[axis]
+        t = t.narrow(dim, coord[axis] * size, size)
+    return t
+
+
+def _gather(blocks: dict, spec, mesh, fixed: dict = None) -> torch.Tensor:
+    """Put the blocks back together along ``spec``'s axes, first axis
+    outermost; ``blocks`` is keyed by the coordinate over those axes."""
+    fixed = fixed or {}
+    dim = len(fixed)
+    if dim == len(spec):
+        return blocks[tuple(fixed[a] for a in spec)]
+    axis = spec[dim]
+    return torch.cat([_gather(blocks, spec, mesh, {**fixed, axis: i})
+                      for i in range(mesh.shape[axis])], dim=dim)
+
+
+def _macro_step(p_blk: torch.Tensor, w_blk: torch.Tensor,
+                mesh=None) -> torch.Tensor:
     """One super-step of the macro grid: an (r x c) block of array passes
-    runs concurrently, as one batched einsum over (sub_r, sub_c).
+    runs concurrently.
 
     p_blk (sub_r, b, g, N, K): each macro row's channel-pass patch block.
     w_blk (sub_r, sub_c, g, K, Po): each macro's weight block.
     Returns (sub_c, b, g, N, Po) — partial products summed over the grid
-    rows (the shift-and-add accumulation across macro rows)."""
-    return torch.einsum("rbgnk,rcgko->cbgno", p_blk, w_blk)
+    rows (the shift-and-add accumulation across macro rows).
+
+    On a ("row", "col") mesh whose axes divide (sub_r, sub_c) — and, with
+    a "data" axis, whose data size divides the batch — every mesh
+    coordinate takes its shards of the operands
+    (`launch.sharding.macro_pass_specs`) to its device and multiplies
+    them there, one product per macro; the products come back to the
+    input's device and add up over the macro rows in ascending row order
+    — the order of the batched step, so two runs agree bit for bit and
+    the sharded step differs from the batched one by no more than its
+    GEMMs do on the smaller shards; the "col" and "data" blocks are put
+    back together.  The weights go to every data replica.  Otherwise the
+    macro axes stay batched on the input's device."""
+    if not macro_mesh_fits(mesh, p_blk.shape[0], w_blk.shape[1],
+                           batch=p_blk.shape[1]):
+        return _macro_grid(p_blk, w_blk)
+    p_spec, w_spec, o_spec = macro_pass_specs(mesh)
+    home = p_blk.device
+    # launch every coordinate's products before reading any back, so the
+    # devices of a real mesh work at once
+    parts = {}
+    for coord in mesh.coords():
+        dev = mesh.device_at(coord)
+        p = _shard(p_blk, p_spec, mesh, coord).to(dev)
+        w = _shard(w_blk, w_spec, mesh, coord).to(dev)
+        parts[tuple(coord.items())] = _macro_products(p, w)
+    blocks = {}
+    for coord in mesh.coords():
+        if coord["row"]:
+            continue
+        rows = (part.to(home) for r in range(mesh.shape["row"])
+                for part in parts[tuple({**coord, "row": r}.items())])
+        blocks[tuple(coord[a] for a in o_spec)] = _row_sum(rows)
+    return _gather(blocks, o_spec, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -240,7 +331,7 @@ def prepared_layer_weights(mapping: LayerMapping, kernel: torch.Tensor
 
 
 def mapped_conv2d(mapping: LayerMapping, x: torch.Tensor,
-                  kernel: Optional[torch.Tensor], *,
+                  kernel: Optional[torch.Tensor], *, mesh=None,
                   weights=None) -> torch.Tensor:
     """Execute one layer macro-parallel, asserting the executed schedule
     matches the mapping's cycle count.  Same layout contract as
@@ -248,7 +339,9 @@ def mapped_conv2d(mapping: LayerMapping, x: torch.Tensor,
     (k_h, k_w, ic // G, oc) grouped HWIO, output (batch, oc, o_h, o_w);
     pruned channels are skipped.  ``weights`` substitutes this layer's
     pre-materialized blocks (:func:`prepared_layer_weights`); ``kernel``
-    may then be None."""
+    may then be None.  ``mesh`` runs every super-step over that device
+    mesh where it fits the sub-grid and the batch (:func:`_macro_step`);
+    the output lies on ``x``'s device either way."""
     check_steps(mapping)
     layer = mapping.layer
     b = x.shape[0]
@@ -300,7 +393,8 @@ def mapped_conv2d(mapping: LayerMapping, x: torch.Tensor,
             buf = torch.zeros_like(acc)
             for ci in range(C):
                 for sh in shapes:
-                    res = _macro_step(sh["p_all"][ri], sh["w_all"][ri, ci])
+                    res = _macro_step(sh["p_all"][ri], sh["w_all"][ri, ci],
+                                      mesh)
                     py, px = sh["py"], sh["px"]
                     n = res.shape[3]
                     vals = res.reshape(sub.c, b, g, n, py, px, oc_t)
@@ -321,14 +415,18 @@ def mapped_conv2d(mapping: LayerMapping, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def mapped_net_apply(net: NetworkMapping, kernels: Sequence[torch.Tensor],
-                     x: torch.Tensor, *, activation=None) -> torch.Tensor:
+                     x: torch.Tensor, *, mesh=None,
+                     activation=None) -> torch.Tensor:
     """Forward an entire ``NetworkMapping`` through the macro-parallel
     executor: ``compile_plan`` with every layer pinned to ``"mapped"``,
-    on ``x``'s device.  ``kernels[i]`` is layer i's kernel in that
+    on ``x``'s device and over ``mesh`` (compiled for ``x``'s batch when
+    a mesh is given).  ``kernels[i]`` is layer i's kernel in that
     mapping's grouped layout ``(k_h, k_w, ic // G_i, oc)``."""
     from ..exec import compile_plan, execute_plan
-    plan = compile_plan(net, executor_policy="mapped", device=x.device)
-    return execute_plan(plan, kernels, x, activation=activation)
+    plan = compile_plan(net, executor_policy="mapped", device=x.device,
+                        mesh=mesh,
+                        batch=x.shape[0] if mesh is not None else None)
+    return execute_plan(plan, kernels, x, mesh=mesh, activation=activation)
 
 
 def reference_net_apply(net: NetworkMapping,

@@ -131,10 +131,10 @@ def apply_cnn(params: Dict, cfg: CNNConfig, x: torch.Tensor,
     ``remat`` asks its segment pass for checkpoint boundaries (any conv
     may end a segment) and runs each segment's convs and pooling under
     ``torch.utils.checkpoint`` — mapping-driven executors only: the
-    ``F.conv2d`` path has no plan to segment.  ``mesh`` must be None
-    (meshes are not ported)."""
-    if mesh is not None:
-        raise ValueError("device meshes are not ported: mesh must be None")
+    ``F.conv2d`` path has no plan to segment.  ``mesh`` is an optional
+    ("row", "col") or ("data", "row", "col") mesh for the mapped executor
+    (`launch.mesh.make_macro_mesh`); the plan decides per layer whether
+    it runs over it."""
     if executor is None:
         executor = "reference" if mappings is None else "cim"
     if executor not in ("reference", "cim", "mapped", "sdk"):
@@ -148,7 +148,7 @@ def apply_cnn(params: Dict, cfg: CNNConfig, x: torch.Tensor,
             array=mappings[0].array, layers=tuple(mappings),
             grid=mappings[0].grid)
         plan = compile_plan(net, executor_policy=_PLAN_POLICY[executor],
-                            batch=x.shape[0], device=x.device,
+                            mesh=mesh, batch=x.shape[0], device=x.device,
                             chained=False, remat=remat)
     elif remat is not None:
         raise ValueError("remat needs a mapping-driven executor — the "
@@ -163,7 +163,7 @@ def apply_cnn(params: Dict, cfg: CNNConfig, x: torch.Tensor,
             x = _pad(x, c.i_w)
             w, b = ws[2 * (i - lo)], ws[2 * (i - lo) + 1]
             if plan is not None:
-                y = apply_layer(plan, i, x, w)
+                y = apply_layer(plan, i, x, w, mesh=mesh)
             else:
                 y = reference_conv2d(c, x, w, groups=cfg.group)
             x = F.relu(y + b[None, :, None, None])

@@ -19,7 +19,11 @@ Both trainers share the step:
   once — so accumulation and padding change the gradient by no more
   than f32 summation order;
 * **pad-and-mask**: a ragged tail batch is padded to the step's
-  ``(accum, microbatch)`` shape with zero-weight masks.
+  ``(accum, microbatch)`` shape with zero-weight masks;
+* **the mesh**: with a ``mesh`` bound, the microbatch pads up to the
+  mesh's data axis (`launch.mesh.pad_to_data_axis`; plans refuse a
+  batch the data axis does not divide), so ``batch`` becomes
+  ``accum x padded microbatch`` and the mapped layers run over the mesh.
 
 `train_plan` trains the kernels of a **chained** NetworkMapping (and a
 linear head on the pooled features) through `execute_plan`, with
@@ -35,8 +39,7 @@ Initial parameters and data come from :func:`_draws`, from a CPU
 run on the card and one on the CPU start from the same values.  The JAX
 package draws from ``jax.random``, which torch cannot replay; the
 parity tests replace :func:`_draws` with the reference's draws.
-Torch has no buffer donation (``donated`` is always False) and meshes
-are not ported (``mesh`` must be None).
+Torch has no buffer donation (``donated`` is always False).
 """
 from __future__ import annotations
 
@@ -53,6 +56,7 @@ from ..data.synthetic import image_task
 from ..device import DeviceLike, resolve_device, synchronize
 from ..exec import compile_plan, donation_supported, execute_plan
 from ..exec.remat import ENV_BUDGET
+from ..launch.mesh import check_mesh, pad_to_data_axis
 from ..optim.adamw import (AdamWConfig, adamw_init, adamw_update,
                            tree_leaves, tree_map, tree_unflatten)
 from .mapped_net import zero_pruned_kernels
@@ -167,9 +171,13 @@ def _check_accum(accum: int, batch: int) -> None:
         raise ValueError(f"accum={accum} must divide batch={batch}")
 
 
-def _check_mesh(mesh) -> None:
-    if mesh is not None:
-        raise ValueError("device meshes are not ported: mesh must be None")
+def _step_batch(batch: int, accum: int, mesh) -> Tuple[int, int]:
+    """(microbatch, batch) of the compiled step: the microbatch pads up
+    to the mesh's data axis when a mesh is bound."""
+    _check_accum(accum, batch)
+    check_mesh(mesh)
+    micro = pad_to_data_axis(batch // accum, mesh)
+    return micro, micro * accum
 
 
 def _draws(kind: str, seed: int, device: torch.device, **kw):
@@ -214,9 +222,10 @@ def train_cnn(cfg: CNNConfig, *, steps: int = 300, batch: int = 64,
 
     ``accum`` splits each ``batch`` into that many microbatches per
     optimizer step (``batch % accum == 0``); ``remat`` forwards to the
-    layerwise plan's segment pass (mapping-driven executors only)."""
-    _check_accum(accum, batch)
-    _check_mesh(mesh)
+    layerwise plan's segment pass (mapping-driven executors only);
+    ``mesh`` runs the mapped layers of the loss over it, each microbatch
+    padded to its data axis."""
+    _, batch = _step_batch(batch, accum, mesh)
     dev = resolve_device(device)
     params, (xs, ys, xt, yt) = _draws("cnn", seed, dev, cfg=cfg,
                                       n_train=n_train, n_test=n_test)
@@ -226,7 +235,7 @@ def train_cnn(cfg: CNNConfig, *, steps: int = 300, batch: int = 64,
 
     def loss_sum(params, x, y, mask):
         logits = apply_cnn(params, cfg, x, mappings=mappings,
-                           executor=executor, remat=remat)
+                           executor=executor, mesh=mesh, remat=remat)
         return (_per_example_nll(logits, y) * mask).sum()
 
     step = _make_step(loss_sum, lr)
@@ -293,16 +302,16 @@ def plan_training(net: NetworkMapping, *, batch: int = 8, seed: int = 0,
                   accum: int = 1, remat=None, executor_policy="reference",
                   mesh=None, num_classes: int = 10, n_train: int = 256,
                   device: DeviceLike = None) -> PlanTraining:
-    """Compile ``net`` for training on ``device`` and draw its initial
-    parameters and data — `train_plan`'s set-up, before any step.
-    Raises ValueError for a plan with ``sdk`` or ``matmul`` layers and
+    """Compile ``net`` for training on ``device`` (over ``mesh``, each
+    microbatch padded to its data axis) and draw its initial parameters
+    and data — `train_plan`'s set-up, before any step.  Raises
+    ValueError for a plan with ``sdk`` or ``matmul`` layers and
     MemoryError when the plan's peak estimate exceeds
     ``REPRO_TRAIN_MEM_BUDGET``."""
-    _check_accum(accum, batch)
-    _check_mesh(mesh)
+    micro, batch = _step_batch(batch, accum, mesh)
     dev = resolve_device(device)
-    plan = compile_plan(net, executor_policy=executor_policy,
-                        batch=batch // accum, remat=remat, device=dev)
+    plan = compile_plan(net, executor_policy=executor_policy, mesh=mesh,
+                        batch=micro, remat=remat, device=dev)
     no_grad = [f"{lp.mapping.layer.name}:{lp.executor}"
                for lp in plan.layers if lp.executor in ("sdk", "matmul")]
     if no_grad:
@@ -325,7 +334,7 @@ def plan_training(net: NetworkMapping, *, batch: int = 8, seed: int = 0,
                               num_classes=num_classes, out_c=out_c)
 
     def loss_sum(params, x, y, mask):
-        feats = execute_plan(plan, params["kernels"], x,
+        feats = execute_plan(plan, params["kernels"], x, mesh=mesh,
                              activation=torch.relu).mean(dim=(2, 3))
         per = _per_example_nll(feats @ params["head"], y)
         return (per * mask).sum()
@@ -343,8 +352,10 @@ def train_plan(net: NetworkMapping, *, steps: int = 10, batch: int = 8,
                device: DeviceLike = None) -> PlanTrainResult:
     """Train a chained NetworkMapping's kernels (+ a linear head on the
     pooled features) through `execute_plan` on ``device`` (default: the
-    card), with ``remat`` segments under ``torch.utils.checkpoint``
-    (module docstring; set-up and refusals in :func:`plan_training`).
+    card), with ``remat`` segments under ``torch.utils.checkpoint`` and
+    the mapped layers over ``mesh`` (module docstring; set-up and
+    refusals in :func:`plan_training`).  The result's ``batch`` is the
+    step's batch, padded as the mesh needs.
     Pass a list as ``losses`` to collect the per-step loss, and/or one as
     ``step_times`` for per-step wall seconds, each taken after a device
     synchronise (the first includes the warm-up)."""
@@ -370,8 +381,8 @@ def train_plan(net: NetworkMapping, *, steps: int = 10, batch: int = 8,
             losses.append(loss)
     plan = tr.plan
     return PlanTrainResult(
-        name=net.name, steps=steps, batch=batch, accum=accum,
+        name=net.name, steps=steps, batch=tr.batch, accum=accum,
         final_loss=loss, first_loss=first_loss,
         peak_mb=plan.peak_bytes / 1e6,
         unremat_peak_mb=plan.unremat_peak_bytes / 1e6,
-        segments=len(plan.spans), donated=donation_supported())
+        segments=len(plan.spans), donated=donation_supported(mesh))

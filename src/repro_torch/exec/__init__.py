@@ -2,8 +2,12 @@
 transformer lowerings with explicit glue.
 
     from repro_torch.exec import compile_plan, execute_plan
-    plan = compile_plan(net_mapping, executor_policy="auto", batch=8)
-    y = execute_plan(plan, kernels, x)
+    plan = compile_plan(net_mapping, executor_policy="auto",
+                        mesh=mesh, batch=8)
+    y = execute_plan(plan, kernels, x, mesh=mesh)
+
+``mesh`` is None or a `repro_torch.launch.mesh.Mesh`
+(`launch.mesh.serving_mesh_for`).
 """
 from .constants import PlanConstants, constant_counts, prepare_constants
 from .glue import (ACTIVATIONS, GLUE_KINDS, GlueSpec, attention_stage,

@@ -9,9 +9,11 @@ pass takes the draft and returns an updated one::
     validate ─ resolve_executors ─ check_glue ─ estimate_memory
              ─ segment ─ schedule ─ (freeze → NetworkPlan)
 
-* **validate** — whole-plan input legality (batch);
+* **validate** — whole-plan input legality (batch, a batch the mesh's
+  data axis does not divide is refused);
 * **resolve_executors** — per-layer executor legality (sdk
-  realizability, matmul op match);
+  realizability, matmul op match) and the mesh decision
+  (`macro_mesh_fits`), so dispatch never re-fits;
 * **check_glue** — inter-layer glue: plain chain / DenseNet concat
   classified from channel arithmetic (exec/glue.py) for CNNs, or the
   mapping's explicit `GlueSpec` tuple (transformer lowerings) validated
@@ -29,7 +31,12 @@ The plan's device type takes the place of the JAX package's
 kernels for a ``"cuda"`` plan exactly where the JAX package picks them
 on a TPU.
 Plans are frozen, hashable and picklable; they join the memo result /
-disk cache keyed on mapping + resolved policy + device + batch + flags.
+disk cache keyed on mapping + resolved policy + mesh shape + device +
+batch + flags.  The live mesh (`launch.mesh.Mesh`) stays out of the IR:
+``NetworkPlan.mesh_axes`` records its shape, each ``LayerPlan.use_mesh``
+whether that layer runs over it, and `execute_plan` binds the live mesh
+and holds it to the compile mesh.  A mesh whose devices are not of the
+plan's device type (or are mixed) is refused at compile.
 
 ``chained=False`` compiles a *layerwise* plan: per-layer executor
 dispatch with no inter-layer glue (``GlueSpec(kind="layerwise")``), for
@@ -39,8 +46,6 @@ through `exec.run.apply_layer`); `execute_plan` refuses it.
 ``executor_policy="tuned"`` serves the autotuner's persisted winner for
 (net, the plan device's fleet, batch) — `repro_torch.tune` — and falls
 back to ``"auto"`` when nothing was tuned.
-
-Not ported yet: device meshes (``mesh=None`` only).
 """
 from __future__ import annotations
 
@@ -51,6 +56,8 @@ from ..core import memo
 from ..core.types import GlueSpec, NetworkMapping
 from ..cnn.mapped_net import LayerSchedule, check_steps, layer_schedule
 from ..device import DeviceLike, resolve_device
+from ..launch.mesh import check_mesh, mesh_platform
+from ..launch.sharding import macro_mesh_fits
 from . import memory as memlib
 from . import remat as rematlib
 from .glue import resolve_chain
@@ -75,6 +82,7 @@ class LayerPlan:
     schedule: LayerSchedule     # steps==cycles evidence (compile-time)
     glue: GlueSpec              # structured inter-layer glue (core.types)
     carry_c: int                # channels entering this layer
+    use_mesh: bool = False      # over the mesh vs batched, at compile
     device: str = "cuda"        # device type the plan runs on
     block: str = "auto"         # sdk: tiling mode
     vmem_budget: int = 8 * 1024 * 1024  # sdk: resolved byte budget
@@ -90,7 +98,9 @@ class LayerPlan:
 @dataclass(frozen=True)
 class NetworkPlan:
     """Static whole-network execution plan.  ``batch`` is the batch the
-    plan was compiled for (None: any batch)."""
+    plan was compiled for (None: any batch).  ``mesh_axes`` records the
+    compile mesh's (name, size) shape (None: no mesh); `execute_plan`
+    binds the live mesh and holds it to these axes."""
 
     net: NetworkMapping
     layers: Tuple[LayerPlan, ...]
@@ -105,6 +115,7 @@ class NetworkPlan:
     #: rematerialization segments — half-open (start, end) layer ranges
     #: chosen by the segment pass; None when remat was off.
     segments: Optional[Tuple[Tuple[int, int], ...]] = None
+    mesh_axes: Optional[Tuple[Tuple[str, int], ...]] = None
 
     @property
     def executors(self) -> Tuple[str, ...]:
@@ -173,9 +184,11 @@ class NetworkPlan:
         execs = ",".join(f"{lp.mapping.layer.name}:{lp.executor}"
                          for lp in self.layers)
         seg = f" segments={len(self.segments)}" if self.segments else ""
+        tag = ("x".join(f"{n}={s}" for n, s in self.mesh_axes)
+               if self.mesh_axes else "vmap")
         return (f"plan[{self.net.name}] layers={len(self.layers)} "
                 f"steps={self.total_steps} device={self.device} "
-                f"lookahead={self.lookahead} "
+                f"mesh={tag} lookahead={self.lookahead} "
                 f"peak_mem={self.peak_bytes / 1e6:.1f}MB{seg} "
                 f"dispatches/forward={self.host_dispatches} ({execs})")
 
@@ -194,6 +207,14 @@ class NetworkPlan:
                 f"{lp.act_bytes / 1e6:.2f}MB weights="
                 f"{lp.weight_bytes / 1e6:.2f}MB{cut}")
         return "\n".join(lines)
+
+
+def mesh_axes(mesh) -> Optional[Tuple[Tuple[str, int], ...]]:
+    """Canonical (name, size) shape of a mesh — the form stored in the
+    IR, used in the plan cache key, and checked at execute time."""
+    if mesh is None:
+        return None
+    return tuple((str(n), int(s)) for n, s in mesh.shape.items())
 
 
 def _sdk_realizable(mapping) -> bool:
@@ -256,6 +277,7 @@ class PlanDraft:
 
     net: NetworkMapping
     execs: Tuple[str, ...]
+    mesh: object                    # the LIVE mesh (not in the final IR)
     batch: Optional[int]
     chained: bool
     device: str
@@ -264,6 +286,7 @@ class PlanDraft:
     lookahead: int
     remat: object                   # canonical spec (exec.remat)
     # pass products
+    use_mesh: Optional[Tuple[bool, ...]] = None        # resolve_executors
     glue: Optional[Tuple[GlueSpec, ...]] = None        # check_glue
     carries: Optional[Tuple[int, ...]] = None          # check_glue
     mem: Optional[Tuple[memlib.LayerMemory, ...]] = None  # estimate_memory
@@ -275,11 +298,21 @@ def pass_validate(d: PlanDraft) -> PlanDraft:
     """Whole-plan input legality."""
     if d.batch is not None and d.batch < 1:
         raise ValueError(f"batch must be >= 1, got {d.batch}")
+    if (d.mesh is not None and "data" in d.mesh.axis_names
+            and d.batch is not None and d.batch % d.mesh.shape["data"]):
+        # refuse rather than quietly run the whole net off the mesh:
+        # ragged batches pad to the data axis (serve_cnn pad-and-mask)
+        raise ValueError(
+            f"batch {d.batch} does not divide the mesh data axis "
+            f"{d.mesh.shape['data']} — pad the batch to "
+            f"pad_to_data_axis(batch, mesh) or drop the data axis")
     return d
 
 
 def pass_resolve_executors(d: PlanDraft) -> PlanDraft:
-    """Executor legality per layer."""
+    """Executor legality per layer, and whether each runs over the
+    mesh."""
+    use = []
     for m, ex in zip(d.net.layers, d.execs):
         lay = m.layer
         if ex == "sdk" and not _sdk_realizable(m):
@@ -292,7 +325,10 @@ def pass_resolve_executors(d: PlanDraft) -> PlanDraft:
             raise ValueError(
                 f"{lay.name}: executor 'matmul' requires op='matmul' "
                 f"(this layer is op={getattr(lay, 'op', 'conv')!r})")
-    return d
+        use.append(ex == "mapped"
+                   and macro_mesh_fits(d.mesh, m.sub_grid.r, m.sub_grid.c,
+                                       batch=d.batch))
+    return replace(d, use_mesh=tuple(use))
 
 
 def pass_check_glue(d: PlanDraft) -> PlanDraft:
@@ -425,15 +461,16 @@ def _freeze(d: PlanDraft) -> NetworkPlan:
     """Assemble the frozen IR from a fully-analyzed draft."""
     layers = tuple(
         LayerPlan(mapping=m, executor=ex, schedule=sch, glue=g,
-                  carry_c=c, device=d.device, block=d.block,
+                  carry_c=c, use_mesh=um, device=d.device, block=d.block,
                   vmem_budget=d.vmem_budget, act_bytes=mm.act_bytes,
                   weight_bytes=mm.weight_bytes)
-        for m, ex, sch, g, c, mm in zip(
-            d.net.layers, d.execs, d.schedules, d.glue, d.carries, d.mem))
+        for m, ex, sch, g, c, um, mm in zip(
+            d.net.layers, d.execs, d.schedules, d.glue, d.carries,
+            d.use_mesh, d.mem))
     return NetworkPlan(net=d.net, layers=layers, batch=d.batch,
                        device=d.device, chained=d.chained,
                        lookahead=d.lookahead,
-                       segments=d.segments)
+                       segments=d.segments, mesh_axes=mesh_axes(d.mesh))
 
 
 def _compile(draft: PlanDraft) -> NetworkPlan:
@@ -444,7 +481,7 @@ def _compile(draft: PlanDraft) -> NetworkPlan:
 
 def compile_plan(net: NetworkMapping, *,
                  executor_policy: PolicyLike = "auto",
-                 batch: Optional[int] = None,
+                 mesh=None, batch: Optional[int] = None,
                  chained: bool = True,
                  device: DeviceLike = None,
                  block: Optional[str] = None,
@@ -460,6 +497,11 @@ def compile_plan(net: NetworkMapping, *,
     batch — see `repro_torch.tune`; falls back to ``"auto"`` when
     nothing has been tuned), one executor name for every layer, a
     per-layer sequence, or a callable ``LayerMapping -> name``.
+    ``mesh`` (a `launch.mesh.Mesh` over devices of the plan's type) and
+    ``batch`` fix the mesh decisions (`macro_mesh_fits` per layer,
+    evaluated here, never at dispatch); a batch that does not divide the
+    mesh's data axis is refused here — pad it first
+    (`launch.mesh.pad_to_data_axis`).
     ``chained=False`` compiles a layerwise plan (module docstring).
     ``lookahead`` (default 1) stays in the IR and is inert here;
     ``vmem_budget`` (default: ``REPRO_SDK_VMEM_BUDGET``, else 8 MiB)
@@ -480,6 +522,11 @@ def compile_plan(net: NetworkMapping, *,
     if not net.layers:
         raise ValueError(f"{net.name}: cannot plan an empty network")
     dev = resolve_device(device).type
+    check_mesh(mesh)
+    if mesh is not None and mesh_platform(mesh) != dev:
+        raise ValueError(
+            f"mesh devices are {mesh_platform(mesh)}, the plan runs on "
+            f"{dev} — build the mesh over {dev} devices")
     if executor_policy == "tuned":
         # lazy import: repro_torch.tune compiles plans, so the dependency
         # must point tune -> exec at module scope, not both ways
@@ -509,11 +556,12 @@ def compile_plan(net: NetworkMapping, *,
         vmem_budget = default_vmem_budget()
     remat_spec = rematlib.canonical_remat(remat)
     execs = _resolve_policy(executor_policy, net, backend=dev)
-    draft = PlanDraft(net=net, execs=execs, batch=batch, chained=chained,
-                      device=dev, block=block, vmem_budget=vmem_budget,
-                      lookahead=lookahead, remat=remat_spec)
+    draft = PlanDraft(net=net, execs=execs, mesh=mesh, batch=batch,
+                      chained=chained, device=dev, block=block,
+                      vmem_budget=vmem_budget, lookahead=lookahead,
+                      remat=remat_spec)
     key = (net, execs, batch, chained, dev, block, vmem_budget, lookahead,
-           remat_spec)
+           remat_spec, mesh_axes(mesh))
 
     def _compile_counted():
         _compile_counts.note(key)
@@ -532,7 +580,8 @@ def compile_counts(*, net: Optional[NetworkMapping] = None,
                    batch: Optional[int] = None) -> dict:
     """Copy of the per-key compile counters, optionally filtered to one
     network mapping and/or plan batch — ``compile_counts(net=nm)``
-    values of all 1 prove each (policy, device, batch) lowered once."""
+    values of all 1 prove each (policy, mesh, device, batch) lowered
+    once."""
     out = {}
     for key, n in _compile_counts.items():
         if net is not None and key[0] != net:

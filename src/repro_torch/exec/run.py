@@ -21,6 +21,12 @@ keeping every layer's saved tensors (exec/memory.py prices both).
 `cnn.models.apply_cnn` path, which owns the pooling, bias and
 activation between convs — and `execute_layerwise` runs every layer of
 a plan on its own input.
+
+Every entry point takes the live ``mesh`` (`launch.mesh.Mesh`) a plan
+was compiled for: the mapped layers whose ``LayerPlan.use_mesh`` the
+compiler set run their super-steps over it (`cnn.mapped_net`), the
+others ignore it.  A plan compiled on a mesh refuses a call without
+that mesh's shape, and the reverse.
 """
 from __future__ import annotations
 
@@ -36,18 +42,21 @@ from ..kernels.matmul_exec import matmul_layer, matmul_layer_ref
 from ..kernels.sdk_conv import sdk_conv
 from .glue import (ACTIVATIONS, attention_stage, center_crop, fit_spatial,
                    layernorm)
-from .plan import LayerPlan, NetworkPlan
+from ..launch.mesh import check_mesh
+from .plan import LayerPlan, NetworkPlan, mesh_axes
 
 ConvFn = Callable[..., torch.Tensor]
 
 
 def _layer_conv(lp: LayerPlan, x: torch.Tensor, kernel: torch.Tensor,
-                weights=None) -> torch.Tensor:
+                weights=None, *, mesh=None) -> torch.Tensor:
     """Dispatch one layer to its planned executor.  ``weights`` is the
-    layer's entry of `PlanConstants.weights` (None: none prepared)."""
+    layer's entry of `PlanConstants.weights` (None: none prepared);
+    ``mesh`` reaches the mapped executor where the plan said so."""
     m = lp.mapping
     if lp.executor == "mapped":
-        return mapped_conv2d(m, x, kernel, weights=weights)
+        return mapped_conv2d(m, x, kernel, weights=weights,
+                             mesh=mesh if lp.use_mesh else None)
     if lp.executor == "sdk":
         return sdk_conv(m, x, kernel, block=lp.block,
                         vmem_budget=lp.vmem_budget)
@@ -123,14 +132,26 @@ def _forward(plan: NetworkPlan, kernels: Sequence[torch.Tensor],
     return x
 
 
-def donation_supported() -> bool:
+def donation_supported(mesh=None) -> bool:
     """Whether the plan's inputs can be donated to the forward: never —
     torch has no input-buffer donation (the JAX package donates on an
-    accelerator)."""
+    accelerator), with or without a mesh."""
     return False
 
 
-def _check_call(plan: NetworkPlan, kernels, x: torch.Tensor) -> None:
+def _check_mesh(plan: NetworkPlan, mesh) -> None:
+    """The live mesh must have the plan's compile-mesh shape (None for a
+    plan compiled without one)."""
+    check_mesh(mesh)
+    axes = mesh_axes(mesh)
+    if axes != plan.mesh_axes:
+        raise ValueError(
+            f"mesh {axes} does not match the plan's compile mesh "
+            f"{plan.mesh_axes} — recompile the plan for this mesh")
+
+
+def _check_call(plan: NetworkPlan, kernels, x: torch.Tensor,
+                mesh=None, *, with_mesh: bool = True) -> None:
     if not plan.chained:
         raise ValueError(
             "execute_plan needs a chained plan; this one was compiled "
@@ -138,6 +159,8 @@ def _check_call(plan: NetworkPlan, kernels, x: torch.Tensor) -> None:
     if len(kernels) != len(plan.layers):
         raise ValueError(f"{len(kernels)} kernels for "
                          f"{len(plan.layers)} planned layers")
+    if with_mesh:
+        _check_mesh(plan, mesh)
     if plan.batch is not None and x.shape[0] != plan.batch:
         raise ValueError(f"batch {x.shape[0]} != plan batch {plan.batch}"
                          f" — pad the request or recompile")
@@ -152,12 +175,14 @@ def _check_call(plan: NetworkPlan, kernels, x: torch.Tensor) -> None:
 
 
 def execute_plan(plan: NetworkPlan, kernels: Sequence[torch.Tensor],
-                 x: torch.Tensor, *, activation=None,
+                 x: torch.Tensor, *, mesh=None, activation=None,
                  donate: bool = False, constants=None) -> torch.Tensor:
     """Run the planned forward on the plan's device.
 
     ``kernels[i]`` is layer i's kernel in grouped HWIO layout, ``x`` the
-    (batch, ic, i_h, i_w) input; both must lie on the plan's device.
+    (batch, ic, i_h, i_w) input; both must lie on the plan's device, and
+    so does the output.  ``mesh`` is the live mesh matching
+    ``plan.mesh_axes`` (None for a plan compiled without one).
     ``activation`` applies after every layer of an inferred-glue (CNN)
     plan; explicit glue (transformer lowerings) owns its nonlinearities
     and ignores it.  ``donate`` is accepted
@@ -168,7 +193,7 @@ def execute_plan(plan: NetworkPlan, kernels: Sequence[torch.Tensor],
     this plan's network: its pre-materialized shifted-weight blocks feed
     the mapped layers in place of their in-forward weight prep
     (``prepare_constants``)."""
-    _check_call(plan, kernels, x)
+    _check_call(plan, kernels, x, mesh)
     consts = None
     if constants is not None:
         if constants.net != plan.net:
@@ -182,17 +207,20 @@ def execute_plan(plan: NetworkPlan, kernels: Sequence[torch.Tensor],
             raise ValueError(f"{len(constants.weights)} constant entries "
                              f"for {len(plan.layers)} planned layers")
         consts = constants.weights
-    return _forward(plan, kernels, x, activation, _layer_conv, remat=True,
+    return _forward(plan, kernels, x, activation,
+                    functools.partial(_layer_conv, mesh=mesh), remat=True,
                     consts=consts)
 
 
 def execute_looped(plan: NetworkPlan, kernels: Sequence[torch.Tensor],
-                   x: torch.Tensor, *, activation=None) -> torch.Tensor:
+                   x: torch.Tensor, *, mesh=None,
+                   activation=None) -> torch.Tensor:
     """One executor call per layer with the glue between — the JAX
     package's per-layer baseline.  Eager PyTorch dispatches
     :func:`execute_plan` the same way, so the two are one loop here."""
-    _check_call(plan, kernels, x)
-    return _forward(plan, kernels, x, activation, _layer_conv)
+    _check_call(plan, kernels, x, mesh)
+    return _forward(plan, kernels, x, activation,
+                    functools.partial(_layer_conv, mesh=mesh))
 
 
 def execute_oracle(plan: NetworkPlan, kernels: Sequence[torch.Tensor],
@@ -202,28 +230,33 @@ def execute_oracle(plan: NetworkPlan, kernels: Sequence[torch.Tensor],
     the plan executors are cross-checked against: ``F.conv2d`` for conv
     layers, `matmul_layer_ref` for matmul layers and
     `flash_attention_ref` for every attention stage; no kernel wrapper
-    is called (pruned channels must be zeroed in ``kernels``)."""
+    is called (pruned channels must be zeroed in ``kernels``).  It takes
+    no mesh: the oracle runs every layer on ``x``'s device, whatever mesh
+    the plan was compiled for."""
     if not plan.chained:
         raise ValueError("execute_oracle needs a chained plan")
-    _check_call(plan, kernels, x)
+    _check_call(plan, kernels, x, with_mesh=False)
     return _forward(plan, kernels, x, activation, _oracle_conv, plain=True)
 
 
 def apply_layer(plan: NetworkPlan, i: int, x: torch.Tensor,
-                kernel: torch.Tensor) -> torch.Tensor:
+                kernel: torch.Tensor, *, mesh=None) -> torch.Tensor:
     """Execute layer ``i`` of the plan on its own — the `apply_cnn`
     path, where pooling / bias / activation between convs belong to the
     model, not the plan."""
-    return _layer_conv(plan.layers[i], x, kernel)
+    _check_mesh(plan, mesh)
+    return _layer_conv(plan.layers[i], x, kernel, mesh=mesh)
 
 
 def execute_layerwise(plan: NetworkPlan, kernels: Sequence[torch.Tensor],
-                      xs: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+                      xs: Sequence[torch.Tensor], *,
+                      mesh=None) -> Tuple[torch.Tensor, ...]:
     """Every layer on its OWN input — a layer set that does not chain
     (several bench networks are representative layer sets).  One
     executor call per layer, as :func:`apply_layer` in a loop."""
     if len(kernels) != len(plan.layers) or len(xs) != len(plan.layers):
         raise ValueError(f"{len(kernels)} kernels / {len(xs)} inputs for "
                          f"{len(plan.layers)} planned layers")
-    return tuple(_layer_conv(lp, x, k)
+    _check_mesh(plan, mesh)
+    return tuple(_layer_conv(lp, x, k, mesh=mesh)
                  for lp, k, x in zip(plan.layers, kernels, xs))

@@ -20,8 +20,8 @@ batch size:
   ladder of plan batches**, each compiled once via
   `repro_torch.exec.compile_plan` (memoized through
   ``memo.cached_plan``).  A coalesced batch pads to the smallest tier
-  that fits instead of one fixed plan batch.  The port has no mesh, so
-  tiers are not padded to a data axis.
+  that fits instead of one fixed plan batch; every tier is padded to the
+  serving mesh's "data" axis (`mesh.pad_to_data_axis`).
 * :class:`TierStats` / :class:`DynamicServeStats` — per-tier effective
   vs padded images plus queue-delay percentiles, the report
   `launch/serve_cnn.serve_dynamic` prints per tier.
@@ -49,6 +49,8 @@ from typing import (TYPE_CHECKING, Callable, Deque, Dict, List, Optional,
                     Sequence, Tuple)
 
 import numpy as np
+
+from . import mesh as meshlib
 
 if TYPE_CHECKING:
     import torch
@@ -216,18 +218,20 @@ class VClock:
         self.t += dt
 
 
-def batch_tiers(max_batch: int) -> Tuple[int, ...]:
+def batch_tiers(max_batch: int, mesh=None) -> Tuple[int, ...]:
     """The plan-batch ladder: powers of two up to ``max_batch`` (the top
-    tier covers it exactly) — e.g. ``(1, 2, 4, 6)`` for
-    ``max_batch=6``.  Ascending, so :func:`tier_for` is a linear scan.
-    The port has no serving mesh, so no tier is padded to a data
-    axis."""
+    tier covers it exactly), each padded to the serving mesh's "data"
+    axis and deduplicated — e.g. ``(1, 2, 4, 6)`` for ``max_batch=6``
+    without a mesh, ``(2, 4, 8)`` for ``max_batch=8`` on a data=2 mesh.
+    Ascending, so :func:`tier_for` is a linear scan."""
     if max_batch < 1:
         raise ValueError(f"max_batch must be >= 1, got {max_batch}")
     tiers: List[int] = []
     b = 1
     while True:
-        tiers.append(min(b, max_batch))
+        t = meshlib.pad_to_data_axis(min(b, max_batch), mesh)
+        if not tiers or t > tiers[-1]:
+            tiers.append(t)
         if b >= max_batch:
             break
         b *= 2
@@ -243,14 +247,14 @@ def tier_for(rows: int, tiers: Sequence[int]) -> int:
 
 
 class PlanLadder:
-    """``compile_plan`` at every tier of the ladder, all on one device:
-    a coalesced batch pads to ``tier_for(rows)`` instead of one fixed
-    plan batch.  Tier plans come out of ``memo.cached_plan``
-    (exec/plan.py), so each tier compiles once per process — or never,
-    with a warm disk cache; `repro_torch.exec.plan.compile_counts`
-    gives the per-key evidence."""
+    """``compile_plan`` at every tier of the ladder, all on one device and
+    one serving mesh (None: no mesh): a coalesced batch pads to
+    ``tier_for(rows)`` instead of one fixed plan batch.  Tier plans come
+    out of ``memo.cached_plan`` (exec/plan.py), so each tier compiles
+    once per process — or never, with a warm disk cache;
+    `repro_torch.exec.plan.compile_counts` gives the per-key evidence."""
 
-    def __init__(self, net_mapping, tiers: Sequence[int], *,
+    def __init__(self, net_mapping, tiers: Sequence[int], *, mesh=None,
                  policy="mapped", lookahead: Optional[int] = None,
                  block: Optional[str] = None,
                  vmem_budget: Optional[int] = None,
@@ -260,12 +264,20 @@ class PlanLadder:
         self.tiers = tuple(sorted(set(int(t) for t in tiers)))
         if not self.tiers:
             raise ValueError("ladder needs at least one tier")
+        for t in self.tiers:
+            if meshlib.pad_to_data_axis(t, mesh) != t:
+                raise ValueError(
+                    f"tier {t} does not divide the mesh data axis "
+                    f"{meshlib.data_axis_size(mesh)} — build tiers with "
+                    f"batch_tiers(max_batch, mesh)")
+        self.mesh = mesh
         self.device = resolve_device(device)
         # policy is any compile_plan PolicyLike (a name, "auto"/"tuned",
         # a per-layer tuple); lookahead / block / vmem_budget pass
         # through unset (None) so "tuned" can fill them per plan
         self.plans = {t: compile_plan(net_mapping, executor_policy=policy,
-                                      batch=t, lookahead=lookahead,
+                                      mesh=mesh, batch=t,
+                                      lookahead=lookahead,
                                       block=block, vmem_budget=vmem_budget,
                                       device=self.device)
                       for t in self.tiers}
@@ -288,7 +300,7 @@ class PlanLadder:
         from ..exec import execute_plan
         y = execute_plan(self.plans[tier], kernels,
                          torch.as_tensor(x_host, device=self.device),
-                         constants=constants)
+                         mesh=self.mesh, constants=constants)
         synchronize(self.device)
         return y
 

@@ -3,7 +3,8 @@
 
 A :class:`FleetScheduler` routes a *tagged* request stream (model name
 on every `batching.Request`) across several compiled `NetworkPlan`
-ladders sharing one device —
+ladders sharing one device and one serving mesh (:func:`fleet_mesh_for`)
+—
 
 * **per-model queues** — each model owns a max-delay
   :class:`batching.Coalescer` and a :class:`batching.PlanLadder`; the
@@ -29,8 +30,6 @@ bit-identical :class:`LaunchRecord` sequence on every run — and the
 same sequence as the JAX package's ``run_fleet``: no wall clock, no
 randomness, no dict-iteration order.  Device execution happens strictly
 *after* each decision and feeds back only through the injected clock.
-The port has no mesh, so the JAX package's ``fleet_mesh_for`` has no
-counterpart here.
 
     python -m repro_torch.launch.serve_cnn --policy auto \
         --fleet cnn8,inception,densenet40 --max-delay-ms 2 \
@@ -47,6 +46,7 @@ from typing import (TYPE_CHECKING, Callable, Dict, List, Mapping,
 import numpy as np
 
 from . import batching
+from . import mesh as meshlib
 
 if TYPE_CHECKING:
     from ..device import DeviceLike
@@ -163,11 +163,11 @@ class FleetScheduler:
     nothing here touches devices, wall time, or randomness — see the
     module docstring's determinism invariant.  ``tiers`` maps each
     model to its plan-batch ladder (default:
-    ``batching.batch_tiers(spec.max_batch)``), so :meth:`pop` can stamp
-    every launch with the tier it will pad to.
+    ``batching.batch_tiers(spec.max_batch, mesh)``), so :meth:`pop` can
+    stamp every launch with the tier it will pad to.
     """
 
-    def __init__(self, config: FleetConfig, *,
+    def __init__(self, config: FleetConfig, *, mesh=None,
                  tiers: Optional[Mapping[str, Sequence[int]]] = None):
         self.config = config
         self.tiers: Dict[str, Tuple[int, ...]] = {}
@@ -175,7 +175,7 @@ class FleetScheduler:
         for spec in config.models:
             self._co[spec.name] = batching.Coalescer(
                 spec.max_batch, spec.max_delay_s)
-            t = batching.batch_tiers(spec.max_batch) \
+            t = batching.batch_tiers(spec.max_batch, mesh) \
                 if tiers is None or spec.name not in tiers \
                 else tuple(sorted(set(int(x) for x in tiers[spec.name])))
             if t[-1] < spec.max_batch:
@@ -540,8 +540,24 @@ class FleetStats:
         return "\n".join(lines)
 
 
+def fleet_mesh_for(mappings: Mapping[str, object], max_batch: int,
+                   devices=None):
+    """Largest serving mesh EVERY network in the fleet can shard onto:
+    the gcd of the per-network macro sub-grids (`mesh.net_macro_grid`),
+    leftover devices stacked along "data" — one shared mesh, so every
+    model's ladder plans against the same device split
+    (``devices=None``: every visible card)."""
+    import math
+    gr = gc = 0
+    for nm in mappings.values():
+        r, c = meshlib.net_macro_grid(nm)
+        gr, gc = math.gcd(gr, r), math.gcd(gc, c)
+    return meshlib.make_serving_mesh(max(gr, 1), max(gc, 1), max_batch,
+                                     devices=devices)
+
+
 def serve_fleet(mappings: Mapping[str, object], config: FleetConfig,
-                trace: Sequence[TraceEvent], *,
+                trace: Sequence[TraceEvent], *, mesh=None,
                 policy="mapped", warmup: int = 1, seed: int = 0,
                 share_constants: bool = True,
                 dropped_layers: Optional[Mapping[str, int]] = None,
@@ -550,7 +566,7 @@ def serve_fleet(mappings: Mapping[str, object], config: FleetConfig,
                 sleep: Callable[[float], None] = time.sleep,
                 ) -> Tuple[FleetStats, List[LaunchRecord]]:
     """Serve a tagged trace across the fleet's plan ladders on one
-    device (default: the card).
+    device (default: the card) and ONE shared ``mesh`` (None: none).
 
     ``mappings`` maps each config model name to its `NetworkMapping` —
     conv nets and transformer lowerings
@@ -558,7 +574,8 @@ def serve_fleet(mappings: Mapping[str, object], config: FleetConfig,
     models additionally report tokens/s (their `ModelStats` carry
     ``tokens_per_row``).  ``dropped_layers`` records, per model, how
     many layers `chainable_prefix` cut before serving.  Per model: a
-    `batching.PlanLadder` plus — with ``share_constants`` (default) —
+    `batching.PlanLadder` (every tier compiled against the shared
+    ``mesh``) plus — with ``share_constants`` (default) —
     one `exec.constants.PlanConstants` handle feeding every tier its
     pre-materialized shifted-weight blocks
     (`exec.constants.constant_counts` shows one materialization per
@@ -579,14 +596,14 @@ def serve_fleet(mappings: Mapping[str, object], config: FleetConfig,
         raise KeyError(f"no mapping for fleet models {missing}")
     dev = resolve_device(device)
 
-    sched = FleetScheduler(config)
+    sched = FleetScheduler(config, mesh=mesh)
     ladders: Dict[str, batching.PlanLadder] = {}
     kernels: Dict[str, list] = {}
     consts: Dict[str, object] = {}
     pools: Dict[str, np.ndarray] = {}
     for spec in config.models:
         nm = mappings[spec.name]
-        ladder = batching.PlanLadder(nm, sched.tiers[spec.name],
+        ladder = batching.PlanLadder(nm, sched.tiers[spec.name], mesh=mesh,
                                      policy=policy, device=dev)
         ladders[spec.name] = ladder
         ks, pools[spec.name] = serving_inputs(nm, ladder.max_batch, seed,

@@ -3,8 +3,8 @@
 
 One Python process serving every request is bounded by its one
 dispatch thread — and the port's forward is host-bound.  This module
-runs N worker processes, each with its own plan ladder and its own CUDA
-context on the card, behind one load-aware router.
+runs N worker processes, each with its own serving mesh, plan ladder and
+CUDA context on the card, behind one load-aware router.
 
 * **Workers** (:func:`_worker_main`) — one spawned process per replica
   (never forked: a forked child cannot use a CUDA context its parent
@@ -64,7 +64,10 @@ class WorkerConfig:
     frozen and picklable (it crosses the spawn boundary).  ``layers``
     optionally serves a prefix of the named net (tests keep CPU time
     small that way); ``device`` is where every worker serves (each
-    worker makes its own CUDA context on the card)."""
+    worker makes its own CUDA context on the card).  ``use_mesh`` gives
+    each worker its own serving mesh (`mesh.serving_mesh_for`) over its
+    visible cards, or over ``worker_devices`` host entries on a CPU
+    worker (:func:`worker_mesh_devices`)."""
 
     net: str = "cnn8"
     array: Tuple[int, int] = (512, 512)
@@ -82,6 +85,31 @@ class WorkerConfig:
     warmup: int = 1
     heartbeat_s: float = 0.05
     device: str = "cuda"
+    use_mesh: bool = True
+    worker_devices: Optional[int] = None
+
+
+def worker_mesh_devices(cfg: WorkerConfig) -> list:
+    """The devices a worker's serving mesh builds over: every visible
+    card for a card worker, the one CPU for a CPU worker — or, with
+    ``worker_devices=N``, N entries of it (the counterpart of the JAX
+    worker's forced host devices).  A card worker's mesh spans the cards
+    it sees, so ``worker_devices`` raises there instead of being
+    ignored."""
+    import torch
+    from .mesh import visible_devices
+    devices = visible_devices(cfg.device)
+    if cfg.worker_devices is None:
+        return devices
+    if cfg.worker_devices < 1:
+        raise ValueError(f"worker_devices must be >= 1, got "
+                         f"{cfg.worker_devices}")
+    if devices[0].type != "cpu":
+        raise ValueError(
+            f"worker_devices={cfg.worker_devices} repeats host entries in a "
+            f"CPU worker's mesh; a card worker's mesh spans the "
+            f"{torch.cuda.device_count()} visible card(s)")
+    return devices * cfg.worker_devices
 
 
 # ---------------------------------------------------------------------------
@@ -341,13 +369,17 @@ def _worker_main(wid: int, cfg: WorkerConfig, task_q, result_q) -> None:
             memo.set_disk_cache(cfg.cache_dir)
         import numpy as np
         from ..device import resolve_device
+        from . import mesh as meshlib
         from .serve_cnn import serving_inputs
 
         dev = resolve_device(cfg.device)
         mapping = _build_mapping(cfg)
-        tiers = batching.batch_tiers(cfg.max_batch)
-        ladder = batching.PlanLadder(mapping, tiers, policy=cfg.policy,
-                                     device=dev)
+        mesh = (meshlib.serving_mesh_for(mapping, cfg.max_batch,
+                                         worker_mesh_devices(cfg))
+                if cfg.use_mesh else None)
+        tiers = batching.batch_tiers(cfg.max_batch, mesh)
+        ladder = batching.PlanLadder(mapping, tiers, mesh=mesh,
+                                     policy=cfg.policy, device=dev)
         ks, pool = serving_inputs(mapping, ladder.max_batch, cfg.seed, dev)
         shape = pool.shape[1:]
         for _ in range(max(cfg.warmup, 0)):
@@ -533,6 +565,8 @@ def serve_replicas(trace: Sequence[Tuple[float, int]], cfg: WorkerConfig,
     if kill_worker is not None and not 0 <= kill_worker < n_replicas:
         raise ValueError(f"kill_worker={kill_worker} not in "
                          f"[0, {n_replicas})")
+    if cfg.use_mesh and cfg.worker_devices is not None:
+        worker_mesh_devices(cfg)    # refuse here, before any spawn
     transport = MpTransport() if transport is None else transport
 
     def _run() -> ReplicaStats:

@@ -4,8 +4,15 @@ Port of ``repro/launch/serve_cnn.py``: map a benchmark conv stack once —
 reusing a persistent on-disk mapping cache so a cold replica skips the
 window search — compile the mapping into
 :class:`repro_torch.exec.NetworkPlan` objects (executor choice,
-schedule and glue fixed at compile time), then drive forward passes through
-``execute_plan`` on the card.  Four serving modes:
+schedule, glue and mesh fitting fixed at compile time), then drive
+forward passes through ``execute_plan`` on the card.  With several
+devices the batch splits over the "data" axis of the serving mesh while
+("row", "col") carry the macro grid (`launch.mesh.make_serving_mesh`);
+the mesh builds over every visible card, or over the one CPU with
+``--device cpu`` — one device gives no mesh (``mesh=vmap``).  A request
+batch the data axis does not divide pads to the plan batch
+(`mesh.pad_to_data_axis`) and the padded rows are masked off the output.
+Four serving modes:
 
 * **fixed** (:func:`serve`) — every step serves one fixed request batch.
   It takes any NetworkMapping, including a transformer lowered by
@@ -20,15 +27,18 @@ schedule and glue fixed at compile time), then drive forward passes through
   (pad-and-mask).  Per-tier effective vs padded images/s and queue-delay
   percentiles are reported.
 * **fleet** (``--fleet cnn8,inception,densenet40``) — several networks
-  share the card under mixed Poisson traffic: per-model coalescers and
+  share the card (and one serving mesh) under mixed Poisson traffic:
+  per-model coalescers and
   plan ladders behind a cross-model drain policy, with prepared
   shifted-weight constants shared across each network's tiers
   (`launch/fleet.py`).  Names resolve against the conv benchmarks and
   the transformer lowerings (``whisper_smoke``, ``stablelm_smoke``); a
   layer set such as inception serves as its chainable prefix.
 * **multi-replica** (``--replicas N``) — N spawned worker processes,
-  each with its own CUDA context and plan ladder, behind a least-loaded
-  router with heartbeat recovery (`launch/replica.py`).
+  each with its own CUDA context, mesh and plan ladder, behind a
+  least-loaded router with heartbeat recovery (`launch/replica.py`);
+  ``--worker-devices N`` builds a CPU worker's mesh over N host
+  entries.
 
     python -m repro_torch.launch.serve_cnn --net cnn8 --batch 8 \
         --steps 20 --policy auto
@@ -52,9 +62,10 @@ summary.  ``--autotune`` runs the measured-feedback autotuner
 profile first — instant with a warm ``--cache-dir`` — then serves the
 winner's full config; ``--policy tuned`` serves a persisted winner
 without searching (the ``auto`` executors when nothing was tuned), in
-every mode.  ``--no-donate`` is accepted and changes nothing (torch has
-no buffer donation).  Not ported: ``--no-mesh`` and
-``--worker-devices`` (the port has no mesh).
+every mode; a tuned mesh split is rebuilt over this process's devices
+(`mesh.mesh_from_split`).  ``--no-mesh`` forces the single-device path.
+``--no-donate`` is accepted and changes nothing (torch has no buffer
+donation).
 
     python -m repro_torch.launch.serve_cnn --net cnn8 --batch 8 \
         --autotune --cache-dir /tmp/mapping-cache
@@ -73,6 +84,7 @@ import torch
 from ..core import ArrayConfig, MacroGrid, grid_search, map_net, memo, networks
 from ..device import DeviceLike, resolve_device, synchronize
 from . import batching
+from . import mesh as meshlib
 
 
 def _parse_grid(text: str) -> MacroGrid:
@@ -97,6 +109,13 @@ def map_for_serving(net: str, array: ArrayConfig, algorithm: str,
         mapping = map_net(net, layers, array, algorithm,
                           grid or MacroGrid(), **kw)
     return mapping, time.perf_counter() - t0
+
+
+def serving_mesh_for(net_mapping, batch: int, devices=None):
+    """Largest mesh every layer of the mapping can shard onto — thin
+    wrapper over :func:`repro_torch.launch.mesh.serving_mesh_for`
+    (``devices=None``: every visible card)."""
+    return meshlib.serving_mesh_for(net_mapping, batch, devices=devices)
 
 
 def _serving_kernels(net_mapping, seed: int, device: torch.device
@@ -146,12 +165,18 @@ class ServeStats:
 
 
 def serve(net_mapping, batch: int, steps: int, warmup: int = 2,
-          seed: int = 0, policy="mapped", lookahead: Optional[int] = None,
+          mesh=None, seed: int = 0, policy="mapped",
+          lookahead: Optional[int] = None,
           block: Optional[str] = None,
           vmem_budget: Optional[int] = None,
           device: DeviceLike = None, inputs=None) -> ServeStats:
     """Steady-state batched forward passes through a compiled plan on
-    ``device`` (default: the card).
+    ``device`` (default: the card), over ``mesh`` where one is given.
+
+    ``batch`` is the *request* batch; when it does not divide the mesh's
+    "data" axis the input is zero-padded to the plan batch and the padded
+    rows are masked off the output (pad-and-mask) — the mesh is never
+    dropped for the single-device path.
 
     ``warmup`` is honored exactly, including 0; the count actually
     executed is reported in ``ServeStats.warmup_steps``.  ``lookahead``,
@@ -171,17 +196,21 @@ def serve(net_mapping, batch: int, steps: int, warmup: int = 2,
     if steps < 1:
         raise ValueError(f"steps must be >= 1, got {steps}")
     dev = resolve_device(device)
-    plan = compile_plan(net_mapping, executor_policy=policy, batch=batch,
-                        device=dev, lookahead=lookahead, block=block,
-                        vmem_budget=vmem_budget)
+    plan_batch = meshlib.pad_to_data_axis(batch, mesh)
+    plan = compile_plan(net_mapping, executor_policy=policy, mesh=mesh,
+                        batch=plan_batch, device=dev, lookahead=lookahead,
+                        block=block, vmem_budget=vmem_budget)
     ks, x = inputs if inputs is not None else serving_inputs(
         net_mapping, batch, seed, dev)
+    if plan_batch != batch:         # ragged: pad to the plan's batch ...
+        x = np.concatenate([x, np.zeros((plan_batch - batch,)
+                                        + x.shape[1:], x.dtype)])
     ring = batching.InputRing(x, device=dev)
 
     def step():
-        y = execute_plan(plan, ks, ring.next())
+        y = execute_plan(plan, ks, ring.next(), mesh=mesh)
         synchronize(dev)
-        return y
+        return y[:batch]            # ... and mask the padded rows
 
     for _ in range(warmup):          # build the kernels, steady the caches
         step()
@@ -190,8 +219,10 @@ def serve(net_mapping, batch: int, steps: int, warmup: int = 2,
         step()
     dt = (time.perf_counter() - t0) / steps
     seq = tokens_per_row(net_mapping)
-    return ServeStats(images_per_s=batch / dt, padded_images_per_s=batch / dt,
-                      s_per_batch=dt, request_batch=batch, plan_batch=batch,
+    return ServeStats(images_per_s=batch / dt,
+                      padded_images_per_s=plan_batch / dt,
+                      s_per_batch=dt, request_batch=batch,
+                      plan_batch=plan_batch,
                       plan=plan, warmup_steps=warmup, donated=ring.donated,
                       tokens_per_s=None if seq is None else batch * seq / dt)
 
@@ -218,7 +249,7 @@ def poisson_arrivals(n: int, rate_per_s: float, max_rows: int,
 
 
 def serve_dynamic(net_mapping, requests: Sequence[Tuple[float, int]], *,
-                  max_batch: int, max_delay_ms: float,
+                  max_batch: int, max_delay_ms: float, mesh=None,
                   tiers: Optional[Sequence[int]] = None,
                   policy="mapped", warmup: int = 1, seed: int = 0,
                   adaptive_delay: bool = False,
@@ -229,7 +260,8 @@ def serve_dynamic(net_mapping, requests: Sequence[Tuple[float, int]], *,
                   clock=time.perf_counter,
                   sleep=time.sleep) -> batching.DynamicServeStats:
     """Arrival-driven serving through the plan ladder on ``device``
-    (default: the card).
+    (default: the card), every tier over ``mesh`` where one is given
+    (the default tiers are padded to its data axis).
 
     ``requests`` is a schedule of ``(arrival_s, rows)`` pairs (seconds
     relative to measurement start, e.g. :func:`poisson_arrivals`).  The
@@ -257,11 +289,12 @@ def serve_dynamic(net_mapping, requests: Sequence[Tuple[float, int]], *,
     if big > max_batch:             # fail before serving, not mid-drain
         raise ValueError(f"request of {big} rows exceeds max_batch="
                          f"{max_batch} — requests are never split")
-    tiers = batching.batch_tiers(max_batch) if tiers is None \
+    tiers = batching.batch_tiers(max_batch, mesh) if tiers is None \
         else tuple(tiers)
-    ladder = batching.PlanLadder(net_mapping, tiers, policy=policy,
-                                 lookahead=lookahead, block=block,
-                                 vmem_budget=vmem_budget, device=device)
+    ladder = batching.PlanLadder(net_mapping, tiers, mesh=mesh,
+                                 policy=policy, lookahead=lookahead,
+                                 block=block, vmem_budget=vmem_budget,
+                                 device=device)
     if ladder.max_batch < max_batch:
         raise ValueError(
             f"tiers {ladder.tiers} do not cover max_batch={max_batch} — "
@@ -275,6 +308,8 @@ def serve_dynamic(net_mapping, requests: Sequence[Tuple[float, int]], *,
             ladder.run(t, ks, pool[:t])
             warmup_steps += 1
 
+    # the coalescer caps batches at the caller's max_batch; the ladder's
+    # top tier may sit above it when the mesh data axis pads it up
     delay_policy = (batching.AdaptiveDelay(max_delay_ms / 1e3, max_batch)
                     if adaptive_delay else None)
     co = batching.Coalescer(max_batch, max_delay_ms / 1e3,
@@ -458,15 +493,19 @@ def _main_fleet(args, dev: torch.device):
     trace = fleet.mixed_poisson_trace(names, args.requests,
                                       args.arrival_rate, max_request,
                                       seed=args.seed)
+    mesh = None if args.no_mesh else fleet.fleet_mesh_for(
+        mappings, max_batch, devices=meshlib.visible_devices(dev))
+    tag = meshlib.mesh_tag(mesh) if mesh is not None else "vmap"
     print(f"fleet [{args.alg}] nets={'/'.join(names)} device={dev} "
-          f"search={search_s*1e3:.1f}ms "
+          f"mesh={tag} search={search_s*1e3:.1f}ms "
           f"(table_builds={st['table_misses']} "
           f"disk_hits={st['disk_hits']})")
     stats, _ = fleet.serve_fleet(
-        mappings, config, trace, policy=args.policy, warmup=args.warmup,
-        seed=args.seed, share_constants=not args.no_share_constants,
+        mappings, config, trace, mesh=mesh, policy=args.policy,
+        warmup=args.warmup, seed=args.seed,
+        share_constants=not args.no_share_constants,
         dropped_layers=dropped, device=dev)
-    _print_fleet(stats, tag="none", max_batch=max_batch,
+    _print_fleet(stats, tag=tag, max_batch=max_batch,
                  max_delay_ms=max_delay_ms, st=st)
     return stats
 
@@ -516,7 +555,8 @@ def _main_replicas(args, dev: torch.device):
         p_max=args.p_max, max_batch=max_batch, max_delay_ms=max_delay_ms,
         adaptive_delay=args.adaptive_delay, policy=args.policy,
         seed=args.seed, cache_dir=args.cache_dir, warmup=args.warmup,
-        device=str(dev))
+        device=str(dev), use_mesh=not args.no_mesh,
+        worker_devices=args.worker_devices)
     print(f"{args.net} [{args.alg}] replicas={args.replicas} "
           f"max_batch={max_batch} max_delay_ms={max_delay_ms} "
           f"requests={args.requests} rate={args.arrival_rate}/s "
@@ -542,7 +582,9 @@ def main(argv=None):
                     help="fixed macro grid RxC (default: 1x1)")
     ap.add_argument("--p-max", type=int, default=None,
                     help="Alg 2 macro-budget sweep instead of --grid")
-    ap.add_argument("--batch", type=int, default=8, help="request batch")
+    ap.add_argument("--batch", type=int, default=8,
+                    help="request batch (padded-and-masked to the plan "
+                         "batch when the mesh data axis does not divide)")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=2,
                     help="untimed warmup forwards; 0 is honored (timing "
@@ -558,7 +600,8 @@ def main(argv=None):
                          "(repro_torch.tune) for this net / device fleet "
                          "/ batch profile first — instant with a warm "
                          "--cache-dir — then serve the winner's full "
-                         "config (policy, lookahead, sdk knobs, tiers); "
+                         "config (policy, mesh split, lookahead, sdk "
+                         "knobs, tiers); "
                          "fixed and dynamic modes — --fleet and "
                          "--replicas serve a persisted winner through "
                          "--policy tuned")
@@ -567,6 +610,8 @@ def main(argv=None):
                          "(default: $REPRO_MAPPING_CACHE)")
     ap.add_argument("--cache-max-bytes", type=int, default=None,
                     help="mtime-LRU size cap for --cache-dir")
+    ap.add_argument("--no-mesh", action="store_true",
+                    help="force the single-device path (no serving mesh)")
     ap.add_argument("--no-donate", action="store_true",
                     help="accepted for the JAX package's CLI; torch has "
                          "no buffer donation, so it changes nothing")
@@ -609,6 +654,10 @@ def main(argv=None):
                      help="crash-inject: kill this worker id once it "
                           "has work in flight (recovery demo — the run "
                           "must still serve every request exactly once)")
+    rep.add_argument("--worker-devices", type=int, default=None,
+                     help="build each CPU worker's mesh over this many "
+                          "host entries (a card worker's mesh spans the "
+                          "visible cards; there it raises)")
     flt = ap.add_argument_group(
         "fleet serving (multi-model; enabled by --fleet)")
     flt.add_argument("--fleet", default=None,
@@ -629,6 +678,8 @@ def main(argv=None):
                           "forward instead of once per network")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
+    # the serving mesh builds over every visible card, or the one CPU
+    devices = meshlib.visible_devices(dev)
 
     if args.cache_dir is not None:
         memo.set_disk_cache(args.cache_dir, max_bytes=args.cache_max_bytes)
@@ -656,56 +707,72 @@ def main(argv=None):
         max_request = args.max_request or min(4, max_batch)
         reqs = poisson_arrivals(args.requests, args.arrival_rate,
                                 max_request, seed=args.seed)
+        mesh = None if args.no_mesh else serving_mesh_for(
+            mapping, max_batch, devices)
         policy, tiers = args.policy, None
         lookahead = block = vmem_budget = None
         if args.autotune:
             from .. import tune
             res = tune.autotune(mapping, batch=max_batch, device=dev,
+                                devices=devices,
                                 ragged=tuple(r for _, r in reqs),
                                 max_delay_ms=args.max_delay_ms,
                                 seed=args.seed)
             print(f"autotune: {res.describe()}")
             cand = res.config.candidate
+            if not args.no_mesh:
+                mesh = meshlib.mesh_from_split(cand.mesh_split, devices)
             policy, lookahead = cand.policy, cand.lookahead
             block, vmem_budget = cand.block, cand.vmem_budget
-            tiers = tune.resolve_tiers(cand, max_batch)
+            tiers = tune.resolve_tiers(cand, max_batch, mesh)
+        tag = meshlib.mesh_tag(mesh) if mesh is not None else "vmap"
         s = serve_dynamic(mapping, reqs, max_batch=max_batch,
-                          max_delay_ms=args.max_delay_ms, tiers=tiers,
-                          policy=policy, warmup=args.warmup,
+                          max_delay_ms=args.max_delay_ms, mesh=mesh,
+                          tiers=tiers, policy=policy, warmup=args.warmup,
                           seed=args.seed,
                           adaptive_delay=args.adaptive_delay,
                           lookahead=lookahead, block=block,
                           vmem_budget=vmem_budget, device=dev)
         compiles = sum(compile_counts(net=mapping).values())
-        _print_dynamic(args.net, s, tag="none", max_batch=max_batch,
+        _print_dynamic(args.net, s, tag=tag, max_batch=max_batch,
                        max_delay_ms=args.max_delay_ms, compiles=compiles,
                        st=st)
         return s
 
+    mesh = None if args.no_mesh else serving_mesh_for(mapping, args.batch,
+                                                      devices)
     policy = args.policy
     lookahead = block = vmem_budget = None
     if args.autotune:
         from .. import tune
         res = tune.autotune(mapping, batch=args.batch, device=dev,
-                            seed=args.seed)
+                            devices=devices, seed=args.seed)
         print(f"autotune: {res.describe()}")
         cand = res.config.candidate
+        if not args.no_mesh:
+            mesh = meshlib.mesh_from_split(cand.mesh_split, devices)
         policy, lookahead = cand.policy, cand.lookahead
         block, vmem_budget = cand.block, cand.vmem_budget
+    tag = meshlib.mesh_tag(mesh) if mesh is not None else "vmap"
     s = serve(mapping, args.batch, args.steps, warmup=args.warmup,
-              seed=args.seed, policy=policy, lookahead=lookahead,
-              block=block, vmem_budget=vmem_budget, device=dev)
+              mesh=mesh, seed=args.seed, policy=policy,
+              lookahead=lookahead, block=block, vmem_budget=vmem_budget,
+              device=dev)
     print(s.plan.describe())
+    pad_note = (f" ({s.padded_images_per_s:.1f} padded images/s at "
+                f"plan batch {s.plan_batch})"
+                if s.plan_batch != s.request_batch else "")
     pol_tag = args.policy if isinstance(policy, str) else \
         "tuned:" + "/".join(sorted(set(policy)))
-    print(f"device={dev} batch={args.batch}: {s.images_per_s:.1f} images/s"
+    print(f"device={dev} mesh={tag} batch={args.batch}: "
+          f"{s.images_per_s:.1f} images/s{pad_note}"
           f" ({s.s_per_batch*1e3:.3f} ms/batch, executor={pol_tag}, "
           f"warmup_steps={s.warmup_steps}, donated={s.donated})")
     print(f"serve/{args.net}/b{args.batch},{s.s_per_batch*1e6:.1f},"
           f"images_per_s={s.images_per_s:.1f};"
           f"padded_images_per_s={s.padded_images_per_s:.1f};"
           f"plan_batch={s.plan_batch};"
-          f"dispatches={s.plan.host_dispatches};mesh=none;"
+          f"dispatches={s.plan.host_dispatches};mesh={tag};"
           f"search_ms={search_s*1e3:.1f};table_builds={st['table_misses']};"
           f"disk_hits={st['disk_hits']}")
     return s

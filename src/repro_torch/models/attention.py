@@ -13,7 +13,8 @@ These are plain PyTorch ops, as the JAX package's are plain ``jnp``: no
 kernel, no ``scaled_dot_product_attention``.  Left out: the JAX
 package's attention policy (``attention_policy``: scores sharding and
 storage type, context-parallel q blocks, inner remat), which only its
-mesh launcher sets; it waits for meshes (ROADMAP.md queue 1, item 7).
+mesh launcher sets; it waits for the LM production mesh (ROADMAP.md
+queue 1, item 7b).
 The scores are f32, the policy's default.
 """
 from __future__ import annotations

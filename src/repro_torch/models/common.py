@@ -7,7 +7,7 @@ JAX package's ``keygen``).
 The JAX package's ``norm_policy`` (bf16 norm chains) is not ported:
 only its sharded step functions (``launch/shapes.py``) turn it on, and
 its train loop and serving use the default f32 norm, as the port does.
-It waits for meshes and sharding (ROADMAP.md queue 1, item 7)."""
+It waits for the LM production mesh (ROADMAP.md queue 1, item 7b)."""
 from __future__ import annotations
 
 import math

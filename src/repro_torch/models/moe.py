@@ -9,8 +9,8 @@ stays flat in S.  Expert weights are (E, D, F) / (E, F, D).
 The JAX package's chunk ``lax.scan`` is a Python loop here, and its
 ``jax.checkpoint`` (which changes nothing in a forward) is left out.  So
 is its mesh gather (``policy_mesh()``: the FSDP gather-at-use of the
-expert weights): the port runs on one device until meshes are ported
-(ROADMAP.md queue 1, item 7).  The weights are cast to the compute type
+expert weights): the port runs on one device until the LM production
+mesh is ported (ROADMAP.md queue 1, item 7b).  The weights are cast to the compute type
 once per call rather than once per chunk: the same values.
 """
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Joint mapping–executor co-tuning against wall-clock on the card: the
 analytical cycle model seeds a shortlist over {per-layer executor
-policy, mesh split (one device: ``None``), lookahead (inert here), sdk
+policy, mesh (data, row, col) split, lookahead (inert here), sdk
 block/budget — ``sdk_whole_kernel`` or ``sdk_window_kernel`` per tile —,
 batch tiers}; interleaved-round medians under successive halving settle
 it; winners persist in the schema-versioned disk cache so a cold process

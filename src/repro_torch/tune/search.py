@@ -23,9 +23,13 @@ profile) it:
    profile and under the generic (batch=None) slot, so ladder tiers
    compiled at other batches inherit it.
 
-The fleet in the key comes from the device the search measures on
-(:func:`fleet_signature`): a winner tuned on the card is never found by
-a ``device="cpu"`` plan, nor the reverse.  Every measured step ends in a
+The fleet in the key comes from the device the search measures on and
+the devices its mesh splits build over (:func:`fleet_signature`): a
+winner tuned on the card is never found by a ``device="cpu"`` plan, nor
+the reverse, and one tuned over eight mesh entries is not found by a
+one-device search.  Each candidate's split is rebuilt over those devices
+(`launch.mesh.mesh_from_split`); a split they cannot realise runs on the
+single-device path.  Every measured step ends in a
 device synchronize, so the clock holds the device's work and not only
 its enqueue.
 
@@ -111,13 +115,18 @@ class TuneResult:
         return f"{self.config.describe()} [{src}]"
 
 
-def fleet_signature(device: DeviceLike = None) -> Tuple[str, int]:
+def fleet_signature(device: DeviceLike = None,
+                    devices=None) -> Tuple[str, int]:
     """(platform, device count) the tuning is valid for — part of the
     persistence key: ``("cuda", torch.cuda.device_count())`` for a plan
-    on the card, ``("cpu", 1)`` for one on the CPU.  It comes from the
-    device asked for, never from whichever card is present, so a winner
-    tuned on the card does not leak onto a CPU plan."""
+    on the card, ``("cpu", 1)`` for one on the CPU, or the count of
+    ``devices`` where the search's meshes build over an explicit list.
+    It comes from the device asked for, never from whichever card is
+    present, so a winner tuned on the card does not leak onto a CPU
+    plan."""
     dev = resolve_device(device)
+    if devices is not None:
+        return (dev.type, len(devices))
     if dev.type == "cuda":
         return ("cuda", torch.cuda.device_count())
     return ("cpu", 1)
@@ -132,7 +141,7 @@ def tuning_key(net, fleet: Tuple[str, int], batch: Optional[int],
 
 
 def tuned_config(net, *, batch: Optional[int] = None,
-                 device: DeviceLike = None,
+                 device: DeviceLike = None, devices=None,
                  ragged: Optional[Tuple[int, ...]] = None
                  ) -> Optional[TunedConfig]:
     """Peek the persisted winner for this (net, fleet of ``device``,
@@ -140,12 +149,11 @@ def tuned_config(net, *, batch: Optional[int] = None,
     stores under — or ``None`` when nothing was ever tuned (callers fall
     back to ``"auto"``; `compile_plan(executor_policy="tuned")` does
     exactly that)."""
-    fleet = fleet_signature(device)
+    fleet = fleet_signature(device, devices)
     slots = (batch, None) if batch is not None else (None,)
     for b in slots:
         cfg = memo.load_tuning(tuning_key(net, fleet, b, ragged))
         if cfg is not None:
-            check_split(cfg.candidate.mesh_split)
             return cfg
     return None
 
@@ -166,35 +174,24 @@ def _chains(net) -> bool:
         return False
 
 
-def check_split(split) -> None:
-    """A candidate's mesh split must be realizable here: ``None`` or the
-    degenerate ``(1, 1, 1)``, one device.  Anything else was tuned for a
-    mesh, which the port does not have yet; it raises rather than
-    quietly serving on one device."""
-    if split is not None and tuple(split) != (1, 1, 1):
-        raise ValueError(f"mesh split {tuple(split)} needs a device mesh, "
-                         f"which this package does not have yet")
-
-
 def resolve_tiers(cand: Candidate, max_batch: int, mesh=None):
-    """The candidate's tier ladder made valid: the top tier covering
-    ``max_batch``.  ``mesh`` is kept for the JAX package's signature (it
-    pads every tier to the mesh's data axis); only ``None`` is accepted
-    until meshes are ported."""
-    from ..launch import batching
-    if mesh is not None:
-        raise ValueError("resolve_tiers: device meshes are not ported yet "
-                         "(pass mesh=None)")
-    check_split(cand.mesh_split)
+    """The candidate's tier ladder made valid for ITS mesh: every tier
+    padded to the data axis (tiers were proposed mesh-agnostically) and
+    the top tier covering ``max_batch``."""
+    from ..launch import batching, mesh as meshlib
+    meshlib.check_mesh(mesh)
     if cand.tiers is None:
-        return batching.batch_tiers(max_batch)
-    tiers = sorted({int(t) for t in cand.tiers})
-    if not tiers or tiers[-1] < max_batch:
-        tiers.append(max_batch)
+        return batching.batch_tiers(max_batch, mesh)
+    tiers = sorted({meshlib.pad_to_data_axis(int(t), mesh)
+                    for t in cand.tiers})
+    top = meshlib.pad_to_data_axis(max_batch, mesh)
+    if not tiers or tiers[-1] < top:
+        tiers.append(top)
     return tuple(tiers)
 
 
 def default_runner(net, *, batch: int, device: DeviceLike = None,
+                   devices=None,
                    ragged: Optional[Tuple[int, ...]] = None,
                    max_delay_ms: float = 0.5,
                    seed: int = 0) -> Callable[[Candidate], Callable]:
@@ -202,8 +199,9 @@ def default_runner(net, *, batch: int, device: DeviceLike = None,
     the card).
 
     Fixed profile (``ragged=None``): one steady-state `execute_plan`
-    forward at the candidate's plan batch (`execute_layerwise` for nets
-    that do not chain).  Ragged profile: one backlogged `serve_dynamic`
+    forward at the candidate's plan batch, padded to its mesh's data axis
+    (`execute_layerwise` for nets that do not chain); each candidate runs
+    over its split rebuilt on ``devices`` (`tune.space.mesh_devices`).  Ragged profile: one backlogged `serve_dynamic`
     drain of the ``ragged`` request sizes through the candidate's tier
     ladder — the coalescer/ladder policy is then part of what is
     measured.  Every step ends in a device synchronize.  Kernels and
@@ -214,9 +212,11 @@ def default_runner(net, *, batch: int, device: DeviceLike = None,
     import numpy as np
     from ..device import synchronize
     from ..exec import compile_plan, execute_layerwise, execute_plan
-    from ..launch import serve_cnn
+    from ..launch import mesh as meshlib, serve_cnn
+    from .space import mesh_devices
 
     dev = resolve_device(device)
+    devices = mesh_devices(devices, dev)
     if dev.type == "cuda":
         from ..kernels import _build
         _build.build_all(PLAN_SOURCES)
@@ -229,37 +229,39 @@ def default_runner(net, *, batch: int, device: DeviceLike = None,
                                device=dev)
 
     def build(cand: Candidate) -> Callable[[], None]:
-        check_split(cand.mesh_split)
+        mesh = meshlib.mesh_from_split(cand.mesh_split, devices)
         if ragged is not None and chained:
             reqs = tuple((0.0, int(r)) for r in ragged)
-            tiers = resolve_tiers(cand, batch)
+            tiers = resolve_tiers(cand, batch, mesh)
 
             def step():
                 serve_cnn.serve_dynamic(
                     net, reqs, max_batch=batch,
-                    max_delay_ms=max_delay_ms, tiers=tiers,
+                    max_delay_ms=max_delay_ms, mesh=mesh, tiers=tiers,
                     policy=cand.policy, warmup=0, seed=seed,
                     lookahead=cand.lookahead, block=cand.block,
                     vmem_budget=cand.vmem_budget, device=dev)
             return step
 
-        plan = compile_plan(net, executor_policy=cand.policy, batch=batch,
-                            chained=chained, lookahead=cand.lookahead,
-                            block=cand.block, vmem_budget=cand.vmem_budget,
+        plan_batch = meshlib.pad_to_data_axis(batch, mesh)
+        plan = compile_plan(net, executor_policy=cand.policy, mesh=mesh,
+                            batch=plan_batch, chained=chained,
+                            lookahead=cand.lookahead, block=cand.block,
+                            vmem_budget=cand.vmem_budget,
                             remat=cand.remat, device=dev)
         if chained:
-            x = upload(batch, first.ic, first.i_h, first.i_w)
+            x = upload(plan_batch, first.ic, first.i_h, first.i_w)
 
             def step():
-                execute_plan(plan, ks, x)
+                execute_plan(plan, ks, x, mesh=mesh)
                 synchronize(dev)
             return step
 
-        xs = tuple(upload(batch, m.layer.ic, m.layer.i_h, m.layer.i_w)
+        xs = tuple(upload(plan_batch, m.layer.ic, m.layer.i_h, m.layer.i_w)
                    for m in net.layers)
 
         def step():
-            execute_layerwise(plan, ks, xs)
+            execute_layerwise(plan, ks, xs, mesh=mesh)
             synchronize(dev)
         return step
 
@@ -267,6 +269,7 @@ def default_runner(net, *, batch: int, device: DeviceLike = None,
 
 
 def autotune(net, *, batch: int, device: DeviceLike = None,
+             devices=None,
              space: Optional[Sequence[Candidate]] = None,
              baseline: Optional[Candidate] = None,
              budget: Optional[TuneBudget] = None,
@@ -277,34 +280,37 @@ def autotune(net, *, batch: int, device: DeviceLike = None,
              force: bool = False, store: bool = True) -> TuneResult:
     """Find (or load) the fastest measured configuration of ``net`` for
     the fleet of ``device`` (default: the card) and this batch profile —
-    see the module docstring for the search shape.  ``force=True``
+    see the module docstring for the search shape.  ``devices`` is the
+    device list the candidates' mesh splits build over (default: every
+    visible card, or the one CPU for ``device="cpu"``).  ``force=True``
     re-measures even with a persisted winner; ``store=False`` skips
     persisting (exploratory sweeps)."""
     if batch < 1:
         raise ValueError(f"batch must be >= 1, got {batch}")
     budget = budget or TuneBudget()
-    fleet = fleet_signature(device)
+    fleet = fleet_signature(device, devices)
     ragged = tuple(int(r) for r in ragged) if ragged is not None else None
     key = tuning_key(net, fleet, batch, ragged)
     if not force:
         cfg = memo.load_tuning(key)
         if cfg is not None:
-            check_split(cfg.candidate.mesh_split)
             return TuneResult(config=cfg, trials=(), cached=True,
                               measurements=0, key=key)
 
     if baseline is None:
-        baseline = baseline_candidate(net, batch=batch, device=device)
+        baseline = baseline_candidate(net, batch=batch, device=device,
+                                      devices=devices)
     if space is None:
         tiers_options = ((None, (batch,)) if ragged is not None
                          else (None,))
         space = enumerate_space(net, batch=batch, device=device,
+                                devices=devices,
                                 tiers_options=tiers_options)
     short = shortlist(net, space, budget.shortlist, baseline=baseline)
 
     if runner is None:
         runner = default_runner(net, batch=batch, device=device,
-                                ragged=ragged,
+                                devices=devices, ragged=ragged,
                                 max_delay_ms=max_delay_ms, seed=seed)
     measured = 0
 

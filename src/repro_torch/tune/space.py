@@ -7,10 +7,10 @@ a real machine but are invisible to that model:
 
 * **executor policy** — which of reference / mapped / sdk runs each
   layer (the ``"auto"`` heuristic guesses; the machine decides);
-* **mesh split** — how a device budget divides into (data, row, col).
-  The port has no mesh yet, so the only split is ``None`` (one device);
-  the field stays so candidates of both packages compare field for
-  field;
+* **mesh split** — how a fixed device budget divides into
+  (data, row, col) macro-grid replicas
+  (`launch.mesh.mesh_split_candidates`); ``None`` is the single-device
+  path, the only split on one device;
 * **lookahead** — the JAX package's fused-program pipeline depth
   (`NetworkPlan.lookahead`).  It is inert here (exec/run.py): the
   lookahead variants of a candidate run one program on the card;
@@ -32,7 +32,9 @@ shortlist is ever measured (repro_torch/tune/search.py).
 
 The backend a policy is resolved for is the plan device's type,
 ``"cuda"`` or ``"cpu"`` (`device.resolve_device`); ``"cuda"`` takes the
-JAX package's ``"tpu"`` branch, as `exec.plan._auto_executor` does.
+JAX package's ``"tpu"`` branch, as `exec.plan._auto_executor` does.  The
+devices a split is built over are ``devices`` where given, else every
+visible card — or the one CPU for ``device="cpu"`` / ``backend="cpu"``.
 """
 from __future__ import annotations
 
@@ -206,15 +208,33 @@ def analytic_cost(net, cand: Candidate) -> float:
     return total / max(data, 1)
 
 
-def mesh_split_candidates(net, batch: int, device: DeviceLike = None
-                          ) -> Tuple[None]:
-    """The device splits the search measures against each other.  The
-    port has no mesh yet, so one device — ``None`` — is all there is."""
-    return (None,)
+def mesh_devices(devices=None, device: DeviceLike = None,
+                 backend: Optional[str] = None) -> list:
+    """The devices a candidate's mesh split is built over: ``devices``
+    where given, else those of ``device`` (every visible card, or the one
+    CPU), else the one CPU for ``backend="cpu"`` and every visible card
+    otherwise."""
+    from ..launch import mesh as meshlib
+    if devices is not None:
+        return list(devices)
+    if device is None and backend == "cpu":
+        device = "cpu"
+    return meshlib.visible_devices(device)
+
+
+def mesh_split_candidates(net, batch: int, devices=None, *,
+                          device: DeviceLike = None,
+                          backend: Optional[str] = None) -> tuple:
+    """The device splits the search measures against each other
+    (`launch.mesh.mesh_split_candidates` over :func:`mesh_devices`):
+    ``None`` first; on one device that is all there is."""
+    from ..launch import mesh as meshlib
+    return meshlib.mesh_split_candidates(
+        net, batch, mesh_devices(devices, device, backend))
 
 
 def enumerate_space(net, *, batch: int, device: DeviceLike = None,
-                    backend: Optional[str] = None,
+                    devices=None, backend: Optional[str] = None,
                     lookaheads: Sequence[int] = (0, 1, 2),
                     blocks: Sequence[str] = ("auto",),
                     vmem_budgets: Sequence[Optional[int]] = (None,),
@@ -230,7 +250,8 @@ def enumerate_space(net, *, batch: int, device: DeviceLike = None,
     differentiates); training tuners pass e.g. ``(None, "auto")`` to
     let the search trade recompute cycles for live memory."""
     if mesh_splits is None:
-        mesh_splits = mesh_split_candidates(net, batch, device)
+        mesh_splits = mesh_split_candidates(net, batch, devices,
+                                            device=device, backend=backend)
     out = []
     for policy in policy_candidates(net, backend=backend, device=device):
         has_sdk = "sdk" in policy
@@ -250,14 +271,18 @@ def enumerate_space(net, *, batch: int, device: DeviceLike = None,
 
 
 def baseline_candidate(net, *, batch: int, device: DeviceLike = None,
+                       devices=None,
                        backend: Optional[str] = None) -> Candidate:
     """What every serve entry point runs with no tuning: the auto
     executor heuristic, lookahead 1, sdk defaults, the default tier
-    ladder, one device — the champion each search carries into its final
-    round, so the reported speedup is always relative to the real
-    default."""
+    ladder, and `serving_mesh_for`'s mesh over :func:`mesh_devices` — the
+    champion each search carries into its final round, so the reported
+    speedup is always relative to the real default."""
+    from ..launch import mesh as meshlib
+    split = meshlib.mesh_split(meshlib.serving_mesh_for(
+        net, batch, mesh_devices(devices, device, backend)))
     return Candidate(policy=auto_policy(net, backend=backend, device=device),
-                     lookahead=1, mesh_split=None)
+                     lookahead=1, mesh_split=split)
 
 
 def shortlist(net, cands: Sequence[Candidate], k: int, *,

@@ -16,8 +16,10 @@ its prefill/decode consistency in f32 and the card against the CPU at
 the smoke configs, and ``attention`` card against CPU; and the same for
 MoE, MLA, RG-LRU, the vision prefix and the encoder-decoder, with
 ``moe.route``'s order on ties on the card; the LM train step on the card
-against the CPU (no kernel launched) and a checkpoint restored onto the
-card.  Marked
+against the CPU (no kernel launched), a checkpoint restored onto the
+card, and the CIM macro mesh over ``[cuda:0] * 8``: the sharded forward
+against the single-device plan, the oracle and the CPU mesh, and
+``train_plan`` over the mesh against no mesh.  Marked
 ``cuda``: without a CUDA device each test skips.  On the card:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
@@ -1013,3 +1015,68 @@ def test_checkpoint_restores_onto_the_card(cuda, tmp_path):
     assert step == 3 and extra == {"data_step": 3}
     for a, b in zip(tree_leaves(got), want):
         assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+def _mesh_net():
+    from repro_torch.core import ArrayConfig, MacroGrid, map_net, networks
+    return map_net("cnn8", networks.cnn8()[:3], ArrayConfig(64, 64),
+                   "Tetris-SDK", MacroGrid(2, 2))
+
+
+@pytest.mark.cuda
+def test_mesh_forward_on_the_card(cuda):
+    """The CIM macro mesh over [cuda:0] * 8 (data 2 x row 2 x col 2), at
+    smoke size: every layer runs over it, the forward is the
+    single-device plan's within 1e-6 of max|y|, the oracle's within
+    1e-4 and the same mesh over [cpu] * 8 within 1e-5; two runs agree
+    bit for bit; no kernel is launched."""
+    from repro_torch.exec import compile_plan, execute_oracle, execute_plan
+    from repro_torch.kernels import sdk_conv
+    from repro_torch.launch import mesh as meshlib, serve_cnn
+    net = _mesh_net()
+    card = meshlib.make_serving_mesh(2, 2, 4, [cuda] * 8)
+    host = meshlib.make_serving_mesh(2, 2, 4, [torch.device("cpu")] * 8)
+    assert card.shape == host.shape == {"data": 2, "row": 2, "col": 2}
+    assert meshlib.mesh_platform(card) == "cuda"
+    ks, xh = serve_cnn.serving_inputs(net, 4, 0, cuda)
+    x = torch.as_tensor(xh, device=cuda)
+    plan = compile_plan(net, executor_policy="mapped", mesh=card, batch=4,
+                        device=cuda)
+    assert all(lp.use_mesh for lp in plan.layers)
+    sdk_conv.reset_counts()
+    y = execute_plan(plan, ks, x, mesh=card)
+    y2 = execute_plan(plan, ks, x, mesh=card)
+    assert torch.equal(y, y2)
+    assert sdk_conv.sdk_whole.launches == sdk_conv.sdk_window.launches == 0
+    vplan = compile_plan(net, executor_policy="mapped", batch=4, device=cuda)
+    _close(y, execute_plan(vplan, ks, x), 1e-6)
+    _close(y, execute_oracle(plan, ks, x), 1e-4)
+    hplan = compile_plan(net, executor_policy="mapped", mesh=host, batch=4,
+                         device="cpu")
+    y_cpu = execute_plan(hplan, [k.cpu() for k in ks], x.cpu(), mesh=host)
+    _close(y.cpu(), y_cpu, RTOL)
+
+
+@pytest.mark.cuda
+def test_mesh_training_on_the_card(cuda):
+    """train_plan over [cuda:0] * 8 with a padded microbatch (6 rows in a
+    step of 8): the losses are those without the mesh within 1e-5
+    relative and the first step's gradients within 1e-6 of max|g|."""
+    from repro_torch.cnn import train as ttrain
+    from repro_torch.launch import mesh as meshlib
+    net = _mesh_net()
+    mesh = meshlib.make_macro_mesh(2, 2, [cuda] * 8, data=2)
+    kw = dict(batch=8, accum=2, n_train=6, executor_policy="mapped",
+              device=cuda)
+    grads = []
+    for msh in (mesh, None):
+        tr = ttrain.plan_training(net, mesh=msh, **kw)
+        _, g = ttrain._accum_grads(tr.loss_sum, tr.params, *tr.batch_at(0))
+        grads.append(g["kernels"] + [g["head"]])
+    for a, b in zip(*grads):
+        _close(a, b, 1e-6)
+    losses = {}
+    for name, msh in (("mesh", mesh), ("vmap", None)):
+        losses[name] = []
+        ttrain.train_plan(net, steps=3, mesh=msh, losses=losses[name], **kw)
+    np.testing.assert_allclose(losses["mesh"], losses["vmap"], rtol=1e-5)

@@ -36,7 +36,8 @@ def test_no_jax_or_reference_imports():
             "models/attention.py", "configs/qwen1_5_32b.py",
             "configs/deepseek_67b.py",
             "configs/mistral_large_123b.py", "checkpoint/store.py",
-            "data/pipeline.py", "optim/compression.py"} <= names
+            "data/pipeline.py", "optim/compression.py",
+            "launch/mesh.py", "launch/sharding.py"} <= names
     bad = [(f.relative_to(ROOT), name) for f in files
            for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "repro")]
@@ -61,7 +62,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.exec.constants, repro_torch.runtime, "
             "repro_torch.tune, repro_torch.core.simulator, "
             "repro_torch.checkpoint, repro_torch.data.pipeline, "
-            "repro_torch.optim.compression\n"
+            "repro_torch.optim.compression, repro_torch.launch.mesh, "
+            "repro_torch.launch.sharding\n"
             "from repro_torch.configs import CNN_IDS, get_config\n"
             "get_config('stablelm_1_6b'); get_config('whisper_base')\n"
             "[get_config(c) for c in CNN_IDS]\n"

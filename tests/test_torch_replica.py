@@ -214,11 +214,33 @@ def test_startup_death_raises(pkg):
                           transport=transport)
 
 
-def test_worker_config_has_a_device_and_no_mesh():
+def test_worker_config_has_a_device_and_no_mesh(monkeypatch):
+    """A worker serves on its device with its own mesh: over the one CPU
+    (no mesh), over ``worker_devices`` host entries, or over the visible
+    cards, where ``worker_devices`` raises naming their count."""
+    import dataclasses
+    import torch
     cfg = t_replica.WorkerConfig()
-    assert cfg.device == "cuda"
-    assert not hasattr(cfg, "use_mesh")
+    assert cfg.device == "cuda" and cfg.use_mesh
+    assert cfg.worker_devices is None
     assert not hasattr(cfg, "xla_host_devices")
+    cpu = dataclasses.replace(cfg, device="cpu")
+    assert t_replica.worker_mesh_devices(cpu) == [torch.device("cpu")]
+    four = dataclasses.replace(cpu, worker_devices=4)
+    assert t_replica.worker_mesh_devices(four) == [torch.device("cpu")] * 4
+    with pytest.raises(ValueError, match=">= 1"):
+        t_replica.worker_mesh_devices(
+            dataclasses.replace(cpu, worker_devices=0))
+    card = dataclasses.replace(cfg, worker_devices=2)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            t_replica.worker_mesh_devices(card)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="1 visible card"):
+        t_replica.worker_mesh_devices(card)
+    with pytest.raises(ValueError, match="1 visible card"):
+        t_replica.serve_replicas([(0.0, 1)], card, 1)
 
 
 def test_spawned_cpu_workers_kill_lossless(capsys, tmp_path, monkeypatch):

@@ -195,7 +195,7 @@ def test_trainers_validate_accum_and_remat():
         ttrain.train_cnn(cnn8_config(), steps=1, batch=8, remat="auto",
                          executor="reference", n_train=16, n_test=8,
                          device="cpu")
-    with pytest.raises(ValueError, match="mesh"):
+    with pytest.raises(ValueError, match="invalid mesh"):
         ttrain.train_plan(_densenet()[1], steps=1, batch=2, mesh=object(),
                           device="cpu")
 

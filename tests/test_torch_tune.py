@@ -134,13 +134,15 @@ def test_space_equals_jax(name, shape, backends):
                 "vmem_budgets": (None, 1 << 20)}):
         js = jtune.enumerate_space(jnet, batch=4, backend=jb,
                                    mesh_splits=(None,), **kw)
-        ts = ttune.enumerate_space(tnet, batch=4, backend=tb, **kw)
+        ts = ttune.enumerate_space(tnet, batch=4, backend=tb,
+                                   mesh_splits=(None,), **kw)
         assert _astuples(js) == _astuples(ts)
         assert [jtune.analytic_cost(jnet, c) for c in js] == \
             [ttune.analytic_cost(tnet, c) for c in ts]
         jbase = jtune.baseline_candidate(jnet, batch=4, backend=jb,
                                          devices=_jax_one_device())
-        tbase = ttune.baseline_candidate(tnet, batch=4, backend=tb)
+        tbase = ttune.baseline_candidate(tnet, batch=4, backend=tb,
+                                         devices=[torch.device("cpu")])
         assert dataclasses.astuple(jbase) == dataclasses.astuple(tbase)
         for k in (1, 3, 5, 8):
             assert _astuples(jtune.shortlist(jnet, js, k)) == \
@@ -156,13 +158,28 @@ def test_space_equals_jax(name, shape, backends):
 
 def test_space_defaults_to_the_plan_device():
     """Without ``backend`` the port resolves the device (default: the
-    card, which raises here); ``device="cpu"`` is the CPU branch, and
-    the only mesh split is None."""
+    card, which raises here); ``device="cpu"`` is the CPU branch, whose
+    one device gives the one split None — as one card does — while a
+    mesh over ``[cpu] * 4`` gives the JAX package's splits of four
+    devices, with the baseline on `serving_mesh_for`'s."""
     _, tnet = _net_both()
     assert ttune.enumerate_space(tnet, batch=4, device="cpu") == \
         ttune.enumerate_space(tnet, batch=4, backend="cpu")
     assert {c.mesh_split for c in ttune.enumerate_space(
         tnet, batch=4, device="cpu")} == {None}
+    one_card = [torch.device("cuda", 0)]
+    assert ttune.space.mesh_split_candidates(tnet, 4, one_card) == (None,)
+    cpu4 = [torch.device("cpu")] * 4
+    splits = ttune.space.mesh_split_candidates(tnet, 4, cpu4)
+    assert splits[0] is None and len(splits) > 1
+    assert {c.mesh_split for c in ttune.enumerate_space(
+        tnet, batch=4, device="cpu", devices=cpu4)} == set(splits)
+    base = ttune.baseline_candidate(tnet, batch=4, device="cpu",
+                                    devices=cpu4)
+    from repro_torch.launch import mesh as t_mesh
+    assert base.mesh_split is not None
+    assert base.mesh_split == t_mesh.mesh_split(
+        t_mesh.serving_mesh_for(tnet, 4, cpu4))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ttune.enumerate_space(tnet, batch=4)
@@ -370,8 +387,12 @@ def test_fleets_do_not_share_winners(clean, monkeypatch):
 
 
 def test_a_persisted_mesh_split_raises(clean):
-    """The port has no mesh: a winner whose split needs one raises where
-    it would be served, instead of quietly running on one device."""
+    """A winner's mesh split is served as the JAX package serves it: the
+    plan and the cache take it as it is, `mesh_from_split` realises it
+    over enough devices and gives None (the single-device path) over too
+    few, `resolve_tiers` pads the tiers to the realised mesh's data axis,
+    and only a value that is not a mesh raises."""
+    from repro_torch.launch import mesh as t_mesh
     _, tnet = _net_both()
     n = len(tnet.layers)
     split = ttune.TunedConfig(
@@ -380,16 +401,24 @@ def test_a_persisted_mesh_split_raises(clean):
         median_s=1.0, baseline_s=1.0, rounds=2, measurements=4,
         fleet=("cpu", 1), batch=4)
     tmemo.store_tuning(ttune.tuning_key(tnet, ("cpu", 1), 4), split)
-    with pytest.raises(ValueError, match="mesh"):
-        compile_plan(tnet, executor_policy="tuned", batch=4, device="cpu")
-    with pytest.raises(ValueError, match="mesh"):
-        ttune.autotune(tnet, batch=4, device="cpu")
-    with pytest.raises(ValueError, match="mesh"):
-        ttune.resolve_tiers(split.candidate, 4)
-    with pytest.raises(ValueError, match="meshes"):
+    plan = compile_plan(tnet, executor_policy="tuned", batch=4, device="cpu")
+    assert plan.executors == ("reference",) * n
+    res = ttune.autotune(tnet, batch=4, device="cpu")
+    assert res.cached and res.config.candidate.mesh_split == (2, 1, 1)
+    cpu = torch.device("cpu")
+    assert t_mesh.mesh_from_split((2, 1, 1), [cpu]) is None
+    mesh = t_mesh.mesh_from_split((2, 1, 1), [cpu] * 4)
+    assert mesh.shape == {"data": 2, "row": 1, "col": 1}
+    assert ttune.resolve_tiers(split.candidate, 4) == (1, 2, 4)
+    assert ttune.resolve_tiers(split.candidate, 4, mesh) == (2, 4)
+    assert ttune.resolve_tiers(
+        dataclasses.replace(split.candidate, tiers=(4, 1)), 6, mesh) == \
+        (2, 4, 6)
+    with pytest.raises(ValueError, match="invalid mesh"):
         ttune.resolve_tiers(ttune.Candidate(policy=("reference",)), 4,
                             mesh=object())
     one = dataclasses.replace(split.candidate, mesh_split=(1, 1, 1))
+    assert t_mesh.mesh_from_split(one.mesh_split, [cpu] * 4) is None
     assert ttune.resolve_tiers(one, 4) == (1, 2, 4)
     assert ttune.resolve_tiers(
         dataclasses.replace(one, tiers=(4, 1)), 6) == (1, 4, 6)
