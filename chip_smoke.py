@@ -257,7 +257,26 @@ Phases, each of which raises on failure (exit code != 0):
        splits measured and the winner printed, not stored);
     f) the sharded and single-device forwards in interleaved rounds —
        one card, the shards serialised: no multi-GPU time;
-21. a ``{"kernels": [...]}`` line: per kernel its launches, error, time
+21. the LM production mesh (no kernel; every launch count 0 over the
+    phase): a) stablelm-1.6b at full width and depth through
+    ``launch.shapes.build_cell`` on the one-card host mesh — train_4k
+    (seq 4096, global batch 256 cut to 4, 4 microbatches), prefill_32k
+    (seq 32768, batch 32 cut to 1) and decode_32k (batch 128 cut to 1,
+    one step at the last slot of the optimized prefill's 32768-slot
+    cache, whose earlier slots hold a prefill of the first 32767 tokens),
+    each with its policies (optimized) and
+    without (baseline) in interleaved rounds: median ms, tokens/s, peak
+    allocation per mode, the gap between them (loss, greedy tokens,
+    cache; printed, not gated), one optimized run under
+    ``torch.profiler``; b) the cells on ``DTensor``s over a (1, 1)
+    ("data", "model") CUDA ``DeviceMesh`` of a world-1 NCCL group
+    (localhost ``MASTER_ADDR``/``MASTER_PORT``), stablelm-1.6b cut to 2
+    units: train (seq 1024) and prefill (seq 2048, with its logits)
+    against plain tensors within 1e-6 relative (bitwise printed); c) the
+    optimized train cell cut to 2 units, seq 1024 (two q blocks, so the
+    inner remat streams), card vs CPU: the loss within 1e-2 relative,
+    the logits under the cell's policy within 1.8e-2 of max|logit|;
+22. a ``{"kernels": [...]}`` line: per kernel its launches, error, time
     at its path's shapes, the plain version's time, the least time the
     card could take (its bound) and the library call's time (and, for
     the kernels phases 15 and 16 run, their launches there);
@@ -3344,6 +3363,296 @@ def mesh_phase(dev, card: str) -> None:
           f"on {card}")
 
 
+#: phase 21, the LM production mesh (no kernel; every launch count 0):
+#: a) stablelm-1.6b at full width and depth through launch.shapes.
+#: build_cell on the one-card host mesh, each cell with its policies
+#: (optimized) and without (baseline) in interleaved rounds: (shape, its
+#: global batch cut for one card and the time limit, microbatches, timed
+#: rounds, a warm-up round first).  The 32k prefill has no warm-up
+#: round (one would take the phase past its budget): each mode's time is
+#: its first call, the baseline's first.  Every cell is profiled on one
+#: more optimized call, outside the timed ones.  The decode cell
+#: steps once at the last slot of the optimized prefill's 32768-slot
+#: cache, which holds at every earlier slot what a prefill of the first
+#: 32767 tokens writes (causal: a token's k/v see no later token); the
+#: step writes its own token's k/v over slot 32767
+PROD_ARCH = "stablelm_1_6b"
+PROD_CELLS = (("train_4k", 4, 4, 1, True), ("prefill_32k", 1, None, 1, False),
+              ("decode_32k", 1, None, 3, True))
+#: b) the DTensor path on the card: a world-1 NCCL group, a (1, 1)
+#: ("data", "model") CUDA DeviceMesh, stablelm-1.6b at full width cut to
+#: CUT_UNITS units: (mode, seq, batch) of the cells; DTensor vs plain
+#: tensors, relative to each output's max
+PROD_DTENSOR = (("train", 1024, 1), ("prefill", 2048, 1))
+PROD_DTENSOR_RTOL = 1e-6
+#: c) the optimized train cell cut to CUT_UNITS units, card vs CPU at
+#: (seq, batch) — two q blocks, so the inner remat streams: the loss
+#: relative, and the train forward's logits under the cell's policy
+#: relative to max|logit| (the bf16 tolerance the CPU tests hold the
+#: port to against the JAX program)
+PROD_CARD_CPU = (1024, 1)
+PROD_CARD_CPU_LOSS_RTOL = 1e-2
+PROD_CARD_CPU_LOGITS_RTOL = 1.8e-2
+
+
+def _timed(fn, args) -> tuple:
+    """(output, ms, peak bytes) of one ``fn(*args)`` (host clock, ending
+    in a synchronize; the peak allocation over the call above what was
+    allocated at its start: its own working set)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, torch.cuda.max_memory_allocated() - start
+
+
+def _leaves(tree) -> list:
+    from repro_torch.checkpoint.store import _flatten  # the leaves' paths
+    return _flatten(tree)
+
+
+def _tree_gap(a, b) -> tuple:
+    """(worst of max|a - b| / max|b| over the tensor leaves, bitwise)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    worst, same = 0.0, True
+    for (_, x), (_, y) in zip(_leaves(a), _leaves(b)):
+        if isinstance(x, DTensor):
+            x = x.full_tensor()
+        if isinstance(y, DTensor):
+            y = y.full_tensor()
+        same = same and bool(torch.equal(x, y))
+        if x.is_floating_point():
+            worst = max(worst, max_err(x.float(), y.float())[1])
+        elif not torch.equal(x, y):
+            worst = float("inf")
+    return worst, same
+
+
+def prod_cell(cfg, name: str, batch: int, n_mb, rounds: int, warm: bool,
+              dev, card: str, cache=None):
+    """Phase 21a for one cell: the optimized and baseline steps in
+    interleaved rounds (median ms, tokens/s, peak allocation per mode),
+    their gap (printed, not gated), one more optimized run under
+    ``torch.profiler``.  A decode cell steps on ``cache``; a prefill cell
+    returns its optimized cache."""
+    import dataclasses
+    import statistics
+    import torch
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import shapes
+    spec = dataclasses.replace(shapes.SHAPES[name], batch=batch)
+    host = meshlib.make_host_mesh()
+    fns = {}
+    for opt in (True, False):
+        fns[opt], args, ins, _ = shapes.build_cell(
+            cfg, spec, host, microbatches=n_mb, optimized=opt)
+    t0 = time.perf_counter()
+    real = shapes.materialize(cfg, spec, args, ins, seed=SEED)
+    if spec.mode == "decode":
+        real = (real[0], cache, real[2], real[3])
+    held = sum(x.numel() * x.element_size() for _, x in _leaves(real)
+               if isinstance(x, torch.Tensor))
+    print(f"[prod] 21a {cfg.name} {name} (seq {spec.seq}, batch {batch} of "
+          f"{shapes.SHAPES[name].batch}" + (f", {n_mb} microbatches"
+                                            if n_mb else "")
+          + f"): args ({held / 2**30:.3f} GiB) placed in "
+          f"{time.perf_counter() - t0:.3f} s on {card}" + (
+              "; the cache the optimized prefill_32k wrote" if cache
+              is not None else ""))
+    ms = {True: [], False: []}
+    peak = {True: 0, False: 0}
+    first = {}
+    for r in range(1 - warm, 1 + rounds):
+        for opt in ((True, False) if r % 2 == 0 else (False, True)):
+            out, t, pk = _timed(fns[opt], real)
+            if opt not in first:
+                first[opt] = (out[1] if spec.mode == "train" else out)
+            if r > 0:
+                ms[opt].append(t)
+                peak[opt] = max(peak[opt], pk)
+            del out
+    tokens_per = batch * (1 if spec.mode == "decode" else spec.seq)
+    med = {opt: statistics.median(ms[opt]) for opt in ms}
+    for opt, kind in ((True, "optimized"), (False, "baseline")):
+        print(f"[prod] 21a {name} {kind}: {med[opt]:.4f} ms (median of "
+              f"{rounds}: {', '.join(f'{t:.4f}' for t in ms[opt])}), "
+              f"{tokens_per / med[opt] * 1e3:.1f} tokens/s, peak "
+              f"allocation {peak[opt] / 2**30:.3f} GiB above the call's "
+              f"start on {card}")
+    if spec.mode == "train":
+        lo, lb = (float(first[o]["loss"]) for o in (True, False))
+        gap = (f"loss {lo:.6f} vs {lb:.6f} (rel {abs(lo - lb) / abs(lb):.3e})"
+               f", grad norm {float(first[True]['grad_norm']):.4f} vs "
+               f"{float(first[False]['grad_norm']):.4f}")
+        ok = all(bool(torch.isfinite(first[o]["loss"])) for o in first)
+    else:
+        (to, co), (tb, cb) = first[True], first[False]
+        worst, same = _tree_gap(co, cb)
+        gap = (f"greedy tokens {to.flatten().tolist()} vs "
+               f"{tb.flatten().tolist()} (equal {bool(torch.equal(to, tb))})"
+               f", cache worst {worst:.3e} of its max (bitwise {same})")
+        ok = all(0 <= int(t) < cfg.vocab for t in to.flatten()) and \
+            worst < float("inf")
+    print(f"[prod] 21a {name} optimized vs baseline (printed, not gated): "
+          f"{gap}; optimized/baseline {med[True] / med[False]:.3f}x")
+    if not ok:
+        raise AssertionError(f"{name}: a loss is not finite or a token is "
+                             f"out of the vocabulary")
+    keep = first[True][1] if spec.mode == "prefill" else None
+    del first
+    profile_call(f"{cfg.name} {name} optimized, one step on {card}",
+                 lambda: fns[True](*real), med[True],
+                 host=spec.mode == "decode")
+    return keep
+
+
+def prod_dtensor(dev, card: str) -> None:
+    """Phase 21b: the cells on DTensors over a (1, 1) CUDA DeviceMesh of a
+    world-1 NCCL group against the same cells on plain tensors (the
+    host mesh); the prefill's logits too, under its policy."""
+    import os
+    import socket
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import shapes
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.attention import attention_policy
+    cfg = cut_depth(get_config(PROD_ARCH), CUT_UNITS)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    os.environ["MASTER_ADDR"] = "localhost"
+    os.environ["MASTER_PORT"] = str(port)
+    dist.init_process_group("nccl", rank=0, world_size=1)
+    try:
+        mesh = meshlib._device_mesh((1, 1), ("data", "model"), "cuda")
+        host = meshlib.make_host_mesh()
+        print(f"[prod] 21b {cfg.name} cut to {cfg.n_layers} blocks: {mesh} "
+              f"on a world-1 {dist.get_backend()} group")
+        for mode, seq, batch in PROD_DTENSOR:
+            spec = shapes.ShapeSpec(f"{mode}_cut", seq, batch, mode)
+            got = {}
+            for label, m in (("dtensor", mesh), ("plain", host)):
+                fn, args, ins, _ = shapes.build_cell(
+                    cfg, spec, m, microbatches=1 if mode == "train" else None)
+                real = shapes.materialize(cfg, spec, args, ins, seed=SEED)
+                out, t, pk = _timed(fn, real)
+                extra = {}
+                if mode == "prefill":
+                    with attention_policy(scores_dtype=torch.bfloat16), \
+                            sh.spmd(m):
+                        extra["logits"], _ = T.forward(
+                            real[0], cfg, mode="prefill", cache_len=seq,
+                            tokens=real[1]["tokens"])
+                got[label] = (out, extra, t, pk)
+                del real
+            (od, xd, td, pd), (op, xp, tp, pp) = got["dtensor"], got["plain"]
+            kinds = {type(x).__name__ for _, x in _leaves(od)}
+            worst, same = _tree_gap(od, op)
+            what = "loss, grad norm, new params and moments"
+            if mode == "prefill":
+                what = "next tokens, cache and logits"
+                w2, s2 = _tree_gap(xd, xp)
+                worst, same = max(worst, w2), same and s2
+            print(f"[prod] 21b {mode} (seq {seq}, batch {batch}): outputs "
+                  f"{sorted(kinds)}; DTensor vs plain {what} within "
+                  f"{worst:.3e} relative (tol {PROD_DTENSOR_RTOL:g}; bitwise "
+                  f"{same}); first call {td:.4f} ms vs {tp:.4f} ms, peak "
+                  f"{pd / 2**30:.3f} vs {pp / 2**30:.3f} GiB above each "
+                  f"call's start on {card}")
+            if not (worst <= PROD_DTENSOR_RTOL and kinds == {"DTensor"}):
+                raise AssertionError(f"the DTensor {mode} cell disagrees "
+                                     f"with plain tensors")
+            del got, od, op
+    finally:
+        dist.destroy_process_group()
+
+
+def prod_card_vs_cpu(dev, card: str) -> None:
+    """Phase 21c: the optimized train cell cut to CUT_UNITS units on the
+    card against the CPU on the same values (drawn on the card, copied):
+    the loss, and the train forward's logits under the cell's policy."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import shapes
+    from repro_torch.models import transformer as T
+    from repro_torch.models.attention import attention_policy
+    from repro_torch.models.common import norm_policy
+    cfg = cut_depth(get_config(PROD_ARCH), CUT_UNITS)
+    seq, batch = PROD_CARD_CPU
+    spec = shapes.ShapeSpec("train_cut", seq, batch, "train")
+    got = {}
+    real = None
+    t0 = time.perf_counter()
+    for label, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        m = meshlib.make_host_mesh(where)
+        fn, args, ins, _ = shapes.build_cell(cfg, spec, m, microbatches=1)
+        if real is None:
+            real = shapes.materialize(cfg, spec, args, ins, seed=SEED)
+        here = T.tree_map(lambda a: a.to(where), real)
+        _, metrics = fn(*here)
+        with attention_policy(scores_dtype=torch.bfloat16, inner_remat=True,
+                              mesh=m), norm_policy(fast=True), \
+                torch.no_grad():
+            logits = T.forward(here[0]["params"], cfg, mode="train",
+                               tokens=here[1]["tokens"][:, :-1])
+        got[label] = (float(metrics["loss"]), logits.float().cpu())
+    (lc, gc), (lp, gp) = got["card"], got["cpu"]
+    rel_loss = abs(lc - lp) / abs(lp)
+    err, rel, scale = max_err(gc, gp)
+    print(f"[prod] 21c {cfg.name} cut to {cfg.n_layers} blocks, optimized "
+          f"train cell (seq {seq}, batch {batch}: 2 q blocks, inner remat), "
+          f"card vs CPU: loss {lc:.6f} vs {lp:.6f} (rel {rel_loss:.3e}, tol "
+          f"{PROD_CARD_CPU_LOSS_RTOL:g}); logits within {rel:.3e} of "
+          f"max|logit|={scale:.3f} (tol {PROD_CARD_CPU_LOGITS_RTOL:g}); "
+          f"{time.perf_counter() - t0:.3f} s with the CPU's step on {card}")
+    if not (rel_loss <= PROD_CARD_CPU_LOSS_RTOL
+            and rel <= PROD_CARD_CPU_LOGITS_RTOL):
+        raise AssertionError("the optimized train cell on the card "
+                             "disagrees with the CPU")
+
+
+def prod_phase(dev, card: str) -> None:
+    """Phase 21: the LM production mesh (module docstring); raises on any
+    failed check."""
+    import torch
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    reset_all_counts()
+    cfg = get_config(PROD_ARCH)
+    cache = None
+    for name, batch, n_mb, rounds, warm in PROD_CELLS:
+        t0 = time.perf_counter()
+        cache = prod_cell(cfg, name, batch, n_mb, rounds, warm, dev, card,
+                          cache)
+        torch.cuda.empty_cache()
+        print(f"[prod] 21a {name} in {time.perf_counter() - t0:.3f} s on "
+              f"{card}")
+    for name, fn in (("b", prod_dtensor), ("c", prod_card_vs_cpu)):
+        t0 = time.perf_counter()
+        fn(dev, card)
+        torch.cuda.empty_cache()
+        print(f"[prod] 21{name} in {time.perf_counter() - t0:.3f} s on "
+              f"{card}")
+    counts = launch_counts()
+    print(f"[prod] kernel launches over phase 21: {counts}")
+    if any(counts.values()):
+        raise AssertionError(f"the production-mesh cells launched {counts}; "
+                             f"their path has no kernel")
+    print(f"[prod] phase 21 in {time.perf_counter() - t_phase:.3f} s on "
+          f"{card}")
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -3585,7 +3894,9 @@ def main() -> int:
     lm_train_phase(dev, card)
     # -- 20. the CIM macro mesh ---------------------------------------------
     mesh_phase(dev, card)
-    print(f"[main] phases 1-20 in {time.perf_counter() - t_main:.3f} s")
+    # -- 21. the LM production mesh: build_cell, its policies, DTensors ---
+    prod_phase(dev, card)
+    print(f"[main] phases 1-21 in {time.perf_counter() - t_main:.3f} s")
     for row in rows:
         if row["name"] in served:
             row["serving_launches"] = served[row["name"]]

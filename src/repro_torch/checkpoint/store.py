@@ -20,6 +20,12 @@ params, ``m`` and ``v`` are f32, ``step`` is int32).
 Async mode: ``CheckpointStore(async_save=True)`` copies the state to host
 memory synchronously and writes the files on a worker thread, so training
 continues during the write.
+
+Meshes: a state of ``DTensor`` leaves (an LM cell on a ``DeviceMesh``) is
+gathered whole on every rank and written by rank 0 alone;
+``restore_checkpoint(shardings=)`` reads each leaf whole and places it
+by its ``launch.sharding.NamedSharding`` — on another mesh than the one
+it was saved from, too (elastic resharding).
 """
 from __future__ import annotations
 
@@ -50,20 +56,57 @@ def _flatten(tree, prefix: str = "") -> List[Tuple[str, Any]]:
             for kv in _flatten(v, f"{prefix}/{k}" if prefix else k)]
 
 
+def _is_dtensor(leaf) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(leaf, DTensor)
+
+
 def _to_host(key: str, leaf) -> np.ndarray:
     """A leaf as a numpy array; a tensor's is a copy on every device (on
-    the CPU ``.cpu()`` would share its storage)."""
+    the CPU ``.cpu()`` would share its storage), a ``DTensor``'s the
+    whole tensor (a collective: every rank of its mesh takes part)."""
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
             raise TypeError(f"{key}: a bfloat16 tensor has no numpy dtype; "
                             f"checkpoint it in float32")
-        return leaf.detach().to("cpu", copy=True).numpy()
+        leaf = leaf.detach()
+        if _is_dtensor(leaf):
+            leaf = leaf.full_tensor()
+        return leaf.to("cpu", copy=True).numpy()
     return np.asarray(leaf)
+
+
+def _host_state(state):
+    """(the state's leaves as numpy in its structure, whether rank 0
+    alone writes them): a state holding ``DTensor``s is gathered on every
+    rank and written once."""
+    pairs = _flatten(state)
+    sharded = any(_is_dtensor(leaf) for _, leaf in pairs)
+    host = tree_unflatten(state, [_to_host(k, v) for k, v in pairs])
+    import torch.distributed as dist
+    skip = sharded and dist.is_initialized() and dist.get_rank() != 0
+    return host, sharded, skip
+
+
+def _barrier(sharded: bool) -> None:
+    """After a sharded state's write, every rank waits for rank 0's."""
+    import torch.distributed as dist
+    if sharded and dist.is_initialized():
+        dist.barrier()
 
 
 def save_checkpoint(directory, step: int, state, *, extra: Optional[Dict]
                     = None, n_shards: int = 4) -> Path:
     directory = Path(directory)
+    final = directory / f"step_{step:08d}"
+    host, sharded, skip = _host_state(state)
+    if not skip:
+        _write_checkpoint(directory, step, host, extra, n_shards)
+    _barrier(sharded)
+    return final
+
+
+def _write_checkpoint(directory: Path, step: int, state, extra, n_shards):
     final = directory / f"step_{step:08d}"
     tmp = directory / f"step_{step:08d}.tmp"
     leaves = [(key, _to_host(key, leaf)) for key, leaf in _flatten(state)]
@@ -87,7 +130,6 @@ def save_checkpoint(directory, step: int, state, *, extra: Optional[Dict]
     if final.exists():
         shutil.rmtree(final)
     tmp.rename(final)                       # atomic publish
-    return final
 
 
 def latest_step(directory) -> Optional[int]:
@@ -107,13 +149,15 @@ def restore_checkpoint(directory, like, *, step: Optional[int] = None,
                        device: DeviceLike = None, shardings=None
                        ) -> Tuple[Any, int, Dict]:
     """Restore into the structure of ``like`` (a tree of tensors; ``meta``
-    tensors give the shapes alone): (state with every leaf on
-    ``resolve_device(device)`` in its stored dtype, step, extra)."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restoring onto a mesh (shardings) waits for the LM "
-            "production mesh (ROADMAP.md queue 1, item 7b)")
-    dev = resolve_device(device)
+    tensors give the shapes alone): (state with every leaf in its stored
+    dtype, step, extra).  ``shardings`` (optional, a tree of
+    ``launch.sharding.NamedSharding`` in ``like``'s structure) places each
+    leaf, read whole, for the *current* mesh — elastic resharding; a leaf
+    without one goes to ``resolve_device(device)``."""
+    from ..launch.sharding import place
+    flat_sh = (None if shardings is None
+               else [s for _, s in _flatten(shardings)])
+    dev = resolve_device(device) if shardings is None else None
     directory = Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -121,11 +165,15 @@ def restore_checkpoint(directory, like, *, step: Optional[int] = None,
             raise FileNotFoundError(f"no checkpoint under {directory}")
     d = directory / f"step_{step:08d}"
     manifest = json.loads((d / "MANIFEST.json").read_text())
+    pairs = _flatten(like)
+    if flat_sh is not None and len(flat_sh) != len(pairs):
+        raise ValueError(f"shardings hold {len(flat_sh)} leaves where the "
+                         f"state has {len(pairs)}")
     out_leaves = []
     with contextlib.ExitStack() as stack:
         files = {k: stack.enter_context(np.load(d / f"shard_{k}.npz"))
                  for k in range(manifest["n_shards"])}
-        for key, leaf in _flatten(like):
+        for i, (key, leaf) in enumerate(pairs):
             meta = manifest["leaves"].get(key)
             if meta is None:
                 raise KeyError(f"checkpoint missing leaf {key}")
@@ -133,6 +181,10 @@ def restore_checkpoint(directory, like, *, step: Optional[int] = None,
             if list(arr.shape) != list(leaf.shape):
                 raise ValueError(f"{key}: shape {arr.shape} != "
                                  f"{tuple(leaf.shape)}")
+            if flat_sh is not None and flat_sh[i] is not None:
+                out_leaves.append(place(torch.tensor(arr), flat_sh[i]))
+                continue
+            dev = dev or resolve_device(device)
             out_leaves.append(torch.tensor(arr, device=dev))
     return tree_unflatten(like, out_leaves), step, manifest["extra"]
 
@@ -151,10 +203,12 @@ class CheckpointStore:
 
     def save(self, step: int, state, extra: Optional[Dict] = None) -> None:
         # copy to the host synchronously (on the CPU too: the next step
-        # must not change what the worker writes), write async if asked
-        host_state = tree_unflatten(
-            state, [_to_host(k, v) for k, v in _flatten(state)])
-        if self.async_save:
+        # must not change what the worker writes), write async if asked;
+        # a sharded state is written by rank 0 alone
+        host_state, sharded, skip = _host_state(state)
+        if skip:
+            pass
+        elif self.async_save:
             self.wait()
             self._thread = threading.Thread(
                 target=self._write, args=(step, host_state, extra),
@@ -162,9 +216,11 @@ class CheckpointStore:
             self._thread.start()
         else:
             self._write(step, host_state, extra)
+        if not self.async_save:
+            _barrier(sharded)
 
     def _write(self, step, state, extra):
-        save_checkpoint(self.directory, step, state, extra=extra)
+        _write_checkpoint(self.directory, step, state, extra, 4)
         self._gc()
 
     def wait(self) -> None:

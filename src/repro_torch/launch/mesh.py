@@ -1,16 +1,17 @@
-"""The CIM macro mesh (port of the macro and data half of
-``repro/launch/mesh.py``).
+"""Device meshes (port of ``repro/launch/mesh.py``): the CIM macro mesh
+and the LM production mesh.
 
-A macro mesh realises the paper's P-macro grid as devices: axes
-("row", "col"), where "row" carries channel passes and "col" oc passes —
-the axis correspondence of ``TileMapping.cycles`` — optionally behind a
-leading "data" axis whose replicas of the macro grid each serve a slice
-of the batch.  The mapped executor runs one super-step of the macro grid
-over such a mesh (`cnn.mapped_net._macro_step`): each mesh coordinate
-gets its own operand shards on its own device, and the cross-row partial
-sums are added on the input's device.
+*The macro mesh.*  A macro mesh realises the paper's P-macro grid as
+devices: axes ("row", "col"), where "row" carries channel passes and
+"col" oc passes — the axis correspondence of ``TileMapping.cycles`` —
+optionally behind a leading "data" axis whose replicas of the macro grid
+each serve a slice of the batch.  The mapped executor runs one
+super-step of the macro grid over such a mesh
+(`cnn.mapped_net._macro_step`): each mesh coordinate gets its own
+operand shards on its own device, and the cross-row partial sums are
+added on the input's device.
 
-The mesh is a single-controller value, not a ``torch.distributed``
+The macro mesh is a single-controller value, not a ``torch.distributed``
 ``DeviceMesh``: one process binds it to ``execute_plan(plan, ks, x,
 mesh=mesh)``, as the JAX package binds its ``shard_map`` mesh; no
 process group is made.  :class:`Mesh` is small, frozen and hashable: its
@@ -23,10 +24,22 @@ without one, as `device.resolve_device` does; a mesh never falls back to
 the CPU on its own.  ``"cuda"`` is normalised to ``cuda:0`` so meshes
 over the same cards compare and hash equal.
 
+*The production mesh.*  The LM configs shard FSDP x TP over a (16, 16)
+("data", "model") pod or a (2, 16, 16) ("pod", "data", "model") pair of
+pods.  In torch that is SPMD: one process a rank, the parameters held as
+``DTensor`` shards on a ``torch.distributed`` ``DeviceMesh``.
+:func:`make_production_mesh` builds that ``DeviceMesh`` over an
+initialised process group of exactly its world size and raises
+otherwise; it never builds a smaller mesh on its own.  The spec
+functions (`launch.sharding`) read any mesh only through
+:func:`axis_names` and :func:`axis_sizes`, so they take a
+``DeviceMesh``, a :class:`Mesh` (``make_host_mesh``'s 1x1 mesh, on
+which the single-card cells run on plain tensors) or any object with
+``axis_names`` and a ``shape`` dict.
+
 This module imports torch only where it makes or checks devices: the
 pure-Python batching, fleet and router modules import it for
-:func:`pad_to_data_axis`.  The LM production mesh
-(``make_production_mesh``) is not ported here.
+:func:`pad_to_data_axis`.
 """
 from __future__ import annotations
 
@@ -143,9 +156,66 @@ def make_host_mesh(device=None) -> Mesh:
     return Mesh(("data", "model"), (1, 1), (visible_devices(device)[0],))
 
 
+#: the production meshes' (shape, axes): one pod, and a pair of pods
+#: whose "pod" axis is pure data parallelism over the slow links
+PRODUCTION = {False: ((16, 16), ("data", "model")),
+              True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def _device_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
+                 device_type: Optional[str] = None):
+    """A ``DeviceMesh`` of ``shape`` over ``axes`` on the initialised
+    process group, which must hold exactly ``prod(shape)`` ranks; on the
+    card (``device_type`` None or ``"cuda"``) the group must have the NCCL
+    backend."""
+    import torch.distributed as dist
+    from ..device import resolve_device
+    n = math.prod(shape)
+    need = (f"a {shape} {axes} mesh needs an initialised torch.distributed "
+            f"process group of {n} ranks")
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(f"{need}; none is initialised "
+                           f"(torch.distributed.init_process_group)")
+    if dist.get_world_size() != n:
+        raise RuntimeError(f"{need}; the group has "
+                           f"{dist.get_world_size()}")
+    dtype = resolve_device(device_type).type
+    if dtype == "cuda" and "nccl" not in str(dist.get_backend()):
+        raise RuntimeError(f"{need} with the NCCL backend on the card; the "
+                           f"group's backend is {dist.get_backend()}")
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(dtype, tuple(shape), mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: Optional[str] = None):
+    """The (16, 16) ("data", "model") ``DeviceMesh``, or (2, 16, 16)
+    ("pod", "data", "model") with ``multi_pod``, on the card unless
+    ``device_type`` names the CPU.  Raises ``RuntimeError`` unless a
+    process group of 256 (512) ranks is initialised."""
+    shape, axes = PRODUCTION[bool(multi_pod)]
+    return _device_mesh(shape, axes, device_type)
+
+
+def axis_names(mesh) -> Tuple[str, ...]:
+    """The mesh's axis names, in order (a ``DeviceMesh``'s
+    ``mesh_dim_names``)."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    return tuple(names if names is not None else mesh.axis_names)
+
+
+def axis_sizes(mesh) -> dict:
+    """``{axis: size}`` in axis order, of a ``DeviceMesh`` (whose
+    ``shape`` is a tuple), a :class:`Mesh` or any object with
+    ``axis_names`` and a ``shape`` dict."""
+    if getattr(mesh, "mesh_dim_names", None) is not None:
+        return dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return {a: int(mesh.shape[a]) for a in mesh.axis_names}
+
+
 def data_axes(mesh) -> tuple:
     """Axes that carry the batch dimension (pod folds into data)."""
-    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+    return tuple(a for a in axis_names(mesh) if a in ("pod", "data"))
 
 
 def make_macro_mesh(sub_r: int, sub_c: int, devices=None, *,

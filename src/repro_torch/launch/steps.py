@@ -37,8 +37,8 @@ def _model_inputs(cfg: ArchConfig, batch: Dict[str, Any]) -> Dict[str, Any]:
     return kw
 
 
-def loss_fn(params, cfg: ArchConfig, batch: Dict[str, Any], *,
-            remat: bool = True) -> torch.Tensor:
+def loss_fn(params, cfg: ArchConfig, batch: Dict[str, Any],
+            act_sharding=None, *, remat: bool = True) -> torch.Tensor:
     """Next-token cross-entropy over the real (unpadded) vocabulary.  The
     batch carries S+1 tokens; the model sees the first S, logit t predicts
     token t+1; the positions of a vision prefix are cut off.
@@ -47,9 +47,11 @@ def loss_fn(params, cfg: ArchConfig, batch: Dict[str, Any], *,
     forward is plain ``jnp`` and reaches no kernel, and ``ssd_chunk`` has
     a backward in neither package (its wrapper refuses autograd), so
     mamba2's SSD chunks are differentiated through their plain version
-    here, on the card too; the prefill keeps the kernel."""
+    here, on the card too; the prefill keeps the kernel.  ``act_sharding``
+    places the activations (``models.transformer.forward``)."""
     inputs = {**batch, "tokens": batch["tokens"][:, :-1]}
     logits = T.forward(params, cfg, mode="train", plain=True, remat=remat,
+                       act_sharding=act_sharding,
                        **_model_inputs(cfg, inputs))
     prefix = batch.get("prefix_embeds")
     if prefix is not None:
@@ -79,20 +81,22 @@ def init_train_state(cfg: ArchConfig, gen: Optional[torch.Generator],
     return {"params": params, "opt": adamw_init(params)}
 
 
-def loss_and_grads(params, cfg: ArchConfig, batch: Dict[str, Any], *,
-                   remat: bool = True):
+def loss_and_grads(params, cfg: ArchConfig, batch: Dict[str, Any],
+                   act_sharding=None, *, remat: bool = True):
     """(loss, gradients in ``params``' structure) of :func:`loss_fn`; a
     leaf the loss does not reach gets zeros, as ``jax.grad`` gives."""
     leaves = tree_leaves(params)
     live = [p.detach().requires_grad_() for p in leaves]
-    loss = loss_fn(tree_unflatten(params, live), cfg, batch, remat=remat)
+    loss = loss_fn(tree_unflatten(params, live), cfg, batch, act_sharding,
+                   remat=remat)
     grads = torch.autograd.grad(loss, live, allow_unused=True)
     return loss.detach(), tree_unflatten(params, [
         torch.zeros_like(p) if g is None else g
         for p, g in zip(leaves, grads)])
 
 
-def make_train_step(cfg: ArchConfig, tc: TrainConfig, *, remat: bool = True):
+def make_train_step(cfg: ArchConfig, tc: TrainConfig, act_sharding=None, *,
+                    remat: bool = True):
     def train_step(state: Dict[str, Any], batch: Dict[str, Any]):
         """One optimizer step over ``tc.microbatches`` microbatches, each
         key of ``batch`` split along its batch dimension; the gradients
@@ -107,14 +111,17 @@ def make_train_step(cfg: ArchConfig, tc: TrainConfig, *, remat: bool = True):
         mbs = [{k: v.chunk(n_mb)[i] for k, v in batch.items()}
                for i in range(n_mb)]
         if n_mb == 1:
-            loss, grads = loss_and_grads(params, cfg, mbs[0], remat=remat)
+            loss, grads = loss_and_grads(params, cfg, mbs[0], act_sharding,
+                                         remat=remat)
             losses = [loss]
         else:
-            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            # zeros_like: a DTensor param's accumulator is sharded alike
+            acc = [torch.zeros_like(p, dtype=torch.float32)
                    for p in tree_leaves(params)]
             losses = []
             for mb in mbs:
-                loss, g = loss_and_grads(params, cfg, mb, remat=remat)
+                loss, g = loss_and_grads(params, cfg, mb, act_sharding,
+                                         remat=remat)
                 for a, gg in zip(acc, tree_leaves(g)):
                     a.add_(gg.float() / n_mb)
                 losses.append(loss)
@@ -138,21 +145,24 @@ def _greedy(cfg: ArchConfig, logits: torch.Tensor) -> torch.Tensor:
     return logits.float().masked_fill(~mask, -1e30).argmax(-1)
 
 
-def make_prefill_step(cfg: ArchConfig, cache_len: Optional[int] = None):
+def make_prefill_step(cfg: ArchConfig, cache_len: Optional[int] = None,
+                      act_sharding=None):
     def prefill_step(params, batch: Dict[str, Any]):
         """batch["tokens"] (B, S) [+ "prefix_embeds", "enc_embeds"] ->
         (next token (B,), cache)."""
         logits, cache = T.forward(params, cfg, mode="prefill",
                                   cache_len=cache_len,
+                                  act_sharding=act_sharding,
                                   **_model_inputs(cfg, batch))
         return _greedy(cfg, logits[:, -1]), cache
     return prefill_step
 
 
-def make_serve_step(cfg: ArchConfig):
+def make_serve_step(cfg: ArchConfig, act_sharding=None):
     def serve_step(params, cache, token, pos):
         """token (B, 1); pos — absolute decode position."""
         logits, new_cache = T.forward(params, cfg, mode="decode",
-                                      tokens=token, cache=cache, pos=pos)
+                                      tokens=token, cache=cache, pos=pos,
+                                      act_sharding=act_sharding)
         return _greedy(cfg, logits[:, -1])[:, None], new_cache
     return serve_step

@@ -10,21 +10,191 @@ so the same code serves train (q_offset=0), prefill, and decode (Sq=1,
 q_offset=cache position).
 
 These are plain PyTorch ops, as the JAX package's are plain ``jnp``: no
-kernel, no ``scaled_dot_product_attention``.  Left out: the JAX
-package's attention policy (``attention_policy``: scores sharding and
-storage type, context-parallel q blocks, inner remat), which only its
-mesh launcher sets; it waits for the LM production mesh (ROADMAP.md
-queue 1, item 7b).
-The scores are f32, the policy's default.
+kernel, no ``scaled_dot_product_attention``.
+
+The attention policy (:func:`attention_policy`, set by
+``launch/shapes.py::build_cell`` and read when the ops run):
+
+* ``scores_dtype``: the scores' storage type (None: f32); bf16 halves
+  the softmax chain's traffic while the row max and sum stay f32;
+* ``scores_sharding`` and ``cp_axis``: context-parallel q blocks for
+  head counts that do not divide the "model" axis — each q block is
+  row-sharded over "model" and k/v gathered, so scores, softmax and the
+  out-product are local.  On ``DTensor`` operands these are
+  ``redistribute`` calls (``launch.sharding.constrain``) under the JAX
+  package's divisibility conditions, and each block then runs on its
+  shard's local tensors (:func:`_local_attend`), so its scores are
+  sharded as its q is; plain tensors are left as they are;
+* ``inner_remat``: each streamed q block under ``torch.utils.checkpoint``
+  (non-reentrant), its scores recomputed in the backward;
+* ``mesh``: the mesh the MoE gather-at-use reads (:func:`policy_mesh`).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import functools
 import math
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
+
+from ..launch.mesh import axis_sizes
+from ..launch.sharding import NamedSharding, P, constrain
+from .common import in_context
 
 NEG_INF = -1e30
+
+# --- the attention policy (set by the launcher, read when the ops run) ---
+_SCORES_SHARDING = contextvars.ContextVar("scores_sharding", default=None)
+_SCORES_DTYPE = contextvars.ContextVar("scores_dtype", default=None)
+_CP_AXIS = contextvars.ContextVar("cp_axis", default=None)  # (mesh, bd)
+_INNER_REMAT = contextvars.ContextVar("inner_remat", default=False)
+_POLICY_MESH = contextvars.ContextVar("policy_mesh", default=None)
+
+
+def policy_mesh():
+    """Mesh registered by the launcher policy (None outside an optimized
+    train cell)."""
+    return _POLICY_MESH.get()
+
+
+@contextlib.contextmanager
+def attention_policy(scores_sharding=None, scores_dtype=None,
+                     cp_axis=None, inner_remat=False, mesh=None):
+    """cp_axis: (mesh, batch_dim_name) enables context-parallel q blocks:
+    each q block is row-sharded over 'model' and k/v are gathered inside
+    attention, so scores, softmax and the out-product are local — the
+    rescue path for head counts that don't divide the model axis."""
+    t1 = _SCORES_SHARDING.set(scores_sharding)
+    t2 = _SCORES_DTYPE.set(scores_dtype)
+    t3 = _CP_AXIS.set(cp_axis)
+    t4 = _INNER_REMAT.set(inner_remat)
+    t5 = _POLICY_MESH.set(mesh)
+    try:
+        yield
+    finally:
+        _SCORES_SHARDING.reset(t1)
+        _SCORES_DTYPE.reset(t2)
+        _CP_AXIS.reset(t3)
+        _INNER_REMAT.reset(t4)
+        _POLICY_MESH.reset(t5)
+
+
+def _cp_constrain(qb, k, v):
+    """Row-shard a q block over 'model'; replicate k/v heads/dh."""
+    cp = _CP_AXIS.get()
+    if cp is None:
+        return qb, k, v
+    mesh, bd = cp
+    if qb.shape[1] % axis_sizes(mesh)["model"] == 0:
+        qb = constrain(qb, NamedSharding(mesh, P(bd, "model", None, None,
+                                                 None)))
+        kv = NamedSharding(mesh, P(bd, None, None, None))
+        k, v = constrain(k, kv), constrain(v, kv)
+    return qb, k, v
+
+
+def _cp_constrain_out(out):
+    """Pin the attention output to q-row sharding too, so the gradient
+    of out stays row-sharded in the backward (the redistribute's backward
+    is the reverse redistribute)."""
+    cp = _CP_AXIS.get()
+    if cp is None:
+        return out
+    mesh, bd = cp
+    if out.shape[1] % axis_sizes(mesh)["model"] == 0:
+        out = constrain(out, NamedSharding(mesh, P(bd, "model", None, None,
+                                                   None)))
+    return out
+
+
+def _constrain_scores(q, sk: int):
+    """The scores' sharding, asked of the q block that yields them: the
+    scores (B,Hkv,G,Bq,Sk) of a ``DTensor`` block are computed on each
+    shard's local operands (:func:`_local_attend`), so they are sharded
+    as q (B,Bq,Hkv,G,Dh) is on the same dims.  Applicable only if every
+    named dim of the scores divides (decode q=1 doesn't)."""
+    ns = _SCORES_SHARDING.get()
+    if ns is None:
+        return q
+    b, bq, hkv, g, _ = q.shape
+    shape = (b, hkv, g, bq, sk)
+    sizes = axis_sizes(ns.mesh)
+    for dim, name in enumerate(ns.spec):
+        if name is not None:
+            ax = name if isinstance(name, str) else name[0]
+            if shape[dim] % sizes[ax]:
+                return q
+    spec = tuple(ns.spec) + (None,) * (5 - len(ns.spec))
+    if spec[4] is not None:
+        raise ValueError(f"scores sharding {ns.spec}: a split of the keys "
+                         f"is not a split of q")
+    return constrain(q, NamedSharding(ns.mesh, P(spec[0], spec[3], spec[1],
+                                                 spec[2], None)))
+
+
+def _local_attend(q, k, v, pos_q, pos_k, **kw):
+    """:func:`_attend_block` on ``DTensor`` operands, run on each shard's
+    local tensors: batch, kv heads, the G query heads a kv head serves
+    and the q rows are independent, so q keeps a split of those dims
+    (k/v split alike on batch and kv heads, whole on the rest) and drops
+    any other (head_dim, a partial sum) by a gather; the output is
+    sharded as q.  DTensor's own propagation through the block's 5-d
+    einsums searches strategies exponentially in the mesh's dims (a
+    (2, 1, 2) mesh took minutes a step on the CPU)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = q.device_mesh
+    # per mesh dim: q's placement, k/v's, and the placement of k/v's
+    # local gradient: where q's rows (or query heads) are split and k/v
+    # whole, each shard's gradient of k/v is a part of the sum
+    qp, kvp, kv_grad = [], [], []
+    for p in q.placements:
+        if isinstance(p, Shard) and p.dim in (0, 2):
+            qp.append(p)
+            kvp.append(p)
+            kv_grad.append(p)
+        elif isinstance(p, Shard) and p.dim in (1, 3):
+            qp.append(p)
+            kvp.append(Replicate())
+            kv_grad.append(Partial())
+        else:
+            qp.append(Replicate())
+            kvp.append(Replicate())
+            kv_grad.append(Replicate())
+    q = q.redistribute(mesh, qp)
+    k, v = k.redistribute(mesh, kvp), v.redistribute(mesh, kvp)
+    ql = q.to_local()
+    _, offset = compute_local_shape_and_global_offset(q.shape, mesh, qp)
+    rows = pos_q[offset[1]:offset[1] + ql.shape[1]]
+    out = _attend_block(ql, k.to_local(grad_placements=kv_grad),
+                        v.to_local(grad_placements=kv_grad), rows, pos_k,
+                        **kw).contiguous()     # the global stride below
+    shape = torch.Size(tuple(q.shape[:4]) + (v.shape[-1],))
+    return DTensor.from_local(out, mesh, qp, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
+
+
+def _attend(q, k, v, pos_q, pos_k, **kw):
+    """One block: on ``DTensor`` operands with the scores' sharding asked
+    of q, on local shards; on plain tensors as it is."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(q, DTensor):
+        return _local_attend(_constrain_scores(q, k.shape[1]), k, v, pos_q,
+                             pos_k, **kw)
+    return _attend_block(q, k, v, pos_q, pos_k, **kw)
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(scale: float, dtype: torch.dtype) -> float:
+    """``scale`` rounded to ``dtype``, on the host: a product of two bf16
+    values is exact in the f32 a bf16 multiply computes in, and is
+    rounded once, as the JAX package's bf16 multiply by its scale."""
+    return float(torch.tensor(scale, dtype=dtype))
 
 
 def _attend_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -34,11 +204,23 @@ def _attend_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """One q block against one kv block.  q (B,Bq,Hkv,G,Dh);
     k/v (B,Sk,Hkv,Dh); returns (B,Bq,Hkv,G,Dv) in v's dtype.
 
-    The scores are f32 from the start (the JAX package asks its einsum
-    for an f32 result; a product of two bf16 values is exact in f32), the
-    row max and sum f32, and the weights are cast to v's dtype before
-    the product with v."""
-    scores = torch.einsum("bqhgd,bshd->bhgqs", q.float(), k.float()) * scale
+    The products are summed in f32 (a product of two bf16 values is exact
+    in f32) and stored in the policy's scores type: f32 by default, or
+    bf16 rounded once, then scaled in bf16 (the JAX package asks its
+    einsum for that type and multiplies by the scale in it; bf16 operands
+    go to a bf16 GEMM, which sums in f32 and rounds its result).  The row
+    max (no gradient, ``stop_gradient``; the max of bf16 values is one of
+    them) and the row sum are f32; the mask value, the exponentials and
+    the division are in the scores' type; the weights are cast to v's
+    dtype before the product with v.  No f32 copy of bf16 scores is
+    made."""
+    sdt = _SCORES_DTYPE.get() or torch.float32
+    if q.dtype == k.dtype == sdt:
+        scores = torch.einsum("bqhgd,bshd->bhgqs", q, k)
+    else:
+        scores = torch.einsum("bqhgd,bshd->bhgqs", q.float(),
+                              k.float()).to(sdt)
+    scores = scores * _rounded(scale, sdt)
     mask = torch.ones(scores.shape[-2:], dtype=torch.bool,
                       device=scores.device)
     if causal:
@@ -48,9 +230,10 @@ def _attend_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kv_len is not None:        # decode: ignore cache beyond fill level
         mask &= (pos_k < kv_len)[None, :]
     scores = scores.masked_fill(~mask, NEG_INF)
-    m = scores.amax(-1, keepdim=True)
-    e = torch.exp(scores - m)
-    w = (e / e.sum(-1, keepdim=True)).to(v.dtype)
+    m = scores.amax(-1, keepdim=True).float().detach()
+    e = torch.exp(scores - m.to(sdt))
+    denom = e.sum(-1, keepdim=True, dtype=torch.float32)
+    w = (e / denom.to(sdt)).to(v.dtype)
     return torch.einsum("bhgqs,bshd->bqhgd", w, v)
 
 
@@ -77,10 +260,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return start + torch.arange(n, device=q.device)
 
     if sq <= q_block:
-        out = _attend_block(qg, k, v, positions(q_offset, sq),
+        qg, k, v = _cp_constrain(qg, k, v)
+        out = _attend(qg, k, v, positions(q_offset, sq),
                             positions(0, sk), causal=causal, window=window,
                             kv_len=kv_len, scale=scale)
-        return out.reshape(b, sq, hq, dv)
+        return _cp_constrain_out(out).reshape(b, sq, hq, dv)
 
     sq_orig = sq
     if sq % q_block:                 # pad q; padded rows are discarded
@@ -88,8 +272,32 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         qg = torch.cat([qg, qg.new_zeros((b, pad) + qg.shape[2:])], 1)
         sq += pad
 
+    cp = _CP_AXIS.get()
+    if cp is not None:
+        # gather q once a layer, so slicing the blocks is local
+        mesh, bd = cp
+        qg = constrain(qg, NamedSharding(mesh, P(bd, None, None, None,
+                                                 None)))
+
     # sliding window: each q block only needs a bounded kv slice
     kv_slice = sk if window is None else min(sk, window + q_block)
+
+    def block(qb, kb, vb, pos_q, pos_k):
+        qb, kb, vb = _cp_constrain(qb, kb, vb)
+        out = _attend(qb, kb, vb, pos_q, pos_k, causal=causal,
+                            window=window, kv_len=kv_len, scale=scale)
+        return _cp_constrain_out(out)
+
+    run = block
+    if _INNER_REMAT.get():
+        # scores and softmax recomputed in the backward instead of kept
+        # for every block of the layer
+        inner = in_context(block)
+
+        def run(*a):
+            return torch.utils.checkpoint.checkpoint(inner, *a,
+                                                     use_reentrant=False)
+
     outs = []
     for i in range(sq // q_block):   # the JAX package's lax.scan
         qb = qg[:, i * q_block:(i + 1) * q_block]
@@ -100,10 +308,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                - (kv_slice - q_block), 0), sk - kv_slice)
             kb = k[:, kv_start:kv_start + kv_slice]
             vb = v[:, kv_start:kv_start + kv_slice]
-        outs.append(_attend_block(
-            qb, kb, vb, positions(q_offset + i * q_block, q_block),
-            positions(kv_start, kv_slice), causal=causal, window=window,
-            kv_len=kv_len, scale=scale))
+        outs.append(run(qb, kb, vb,
+                        positions(q_offset + i * q_block, q_block),
+                        positions(kv_start, kv_slice)))
     out = torch.cat(outs, 1)
     return out.reshape(b, sq, hq, dv)[:, :sq_orig]
 

@@ -2,20 +2,43 @@
 compute, the norms, the activations, rotary and sinusoidal positions,
 and the weight
 initialisers over a ``torch.Generator`` (which takes the place of the
-JAX package's ``keygen``).
+JAX package's ``keygen``), and ``norm_policy``.
 
-The JAX package's ``norm_policy`` (bf16 norm chains) is not ported:
-only its sharded step functions (``launch/shapes.py``) turn it on, and
-its train loop and serving use the default f32 norm, as the port does.
-It waits for the LM production mesh (ROADMAP.md queue 1, item 7b)."""
+``norm_policy(fast=True)`` (set by ``launch/shapes.py::build_cell`` for
+optimized train cells) keeps :func:`rms_norm`'s elementwise chain in
+bf16, accumulating the variance in f32 inside the reduction: no f32
+copy of the (B, S, D) activations per norm.  The train loop and serving
+keep the default f32 norm, as the JAX package's do."""
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Optional, Tuple
 
 import torch
 
 COMPUTE_DTYPE = torch.bfloat16
+
+_FAST_NORM = contextvars.ContextVar("fast_norm", default=False)
+
+
+@contextlib.contextmanager
+def norm_policy(fast: bool):
+    tok = _FAST_NORM.set(fast)
+    try:
+        yield
+    finally:
+        _FAST_NORM.reset(tok)
+
+
+def in_context(fn):
+    """``fn`` run in a copy of the caller's context variables: a function
+    that ``torch.utils.checkpoint`` recomputes in the backward (which
+    autograd may run on a thread of its own, where context variables
+    hold their defaults) sees the policies of its forward."""
+    ctx = contextvars.copy_context()
+    return lambda *a, **k: ctx.run(fn, *a, **k)
 
 
 def cast(x: torch.Tensor) -> torch.Tensor:
@@ -25,6 +48,13 @@ def cast(x: torch.Tensor) -> torch.Tensor:
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
              ) -> torch.Tensor:
     dt = x.dtype
+    if _FAST_NORM.get() and dt == torch.bfloat16:
+        # the square rounded to bf16, summed in f32; rsqrt in f32 rounded
+        # to bf16; both products in bf16, each rounded (as the JAX
+        # package writes them)
+        var = (x * x).mean(-1, keepdim=True, dtype=torch.float32)
+        inv = torch.rsqrt(var + eps).to(dt)
+        return x * inv * cast(scale)
     x32 = x.float()
     var = (x32 * x32).mean(-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps)).to(dt) * cast(scale)

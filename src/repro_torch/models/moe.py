@@ -7,11 +7,16 @@ capacity) instead of O(B * S * E * capacity), so MoE activation memory
 stays flat in S.  Expert weights are (E, D, F) / (E, F, D).
 
 The JAX package's chunk ``lax.scan`` is a Python loop here, and its
-``jax.checkpoint`` (which changes nothing in a forward) is left out.  So
-is its mesh gather (``policy_mesh()``: the FSDP gather-at-use of the
-expert weights): the port runs on one device until the LM production
-mesh is ported (ROADMAP.md queue 1, item 7b).  The weights are cast to the compute type
-once per call rather than once per chunk: the same values.
+``jax.checkpoint`` (which changes nothing in a forward) is left out.  The
+weights are cast to the compute type once per call rather than once per
+chunk: the same values.
+
+Under an optimized train cell's policy mesh (``attention.policy_mesh()``)
+the expert weights and the router are gathered at use before the chunks
+run — the FSDP schedule: the expert weights keep only their d_ff split
+over 'model' (where it divides), the router is replicated.  On
+``DTensor`` weights that is a ``redistribute``; plain weights (one
+device) are left as they are.
 """
 from __future__ import annotations
 
@@ -21,6 +26,9 @@ from typing import Tuple
 
 import torch
 
+from ..launch.mesh import axis_sizes
+from ..launch.sharding import NamedSharding, P, constrain
+from .attention import policy_mesh
 from .common import cast, silu
 
 
@@ -89,6 +97,16 @@ def moe_ffn(x: torch.Tensor, params: dict, cfg: MoEConfig) -> torch.Tensor:
     cap = capacity(cfg, chunk)
     router = cast(params["router"])
     wi, wg, wo = (cast(params[n]) for n in ("wi", "wg", "wo"))
+    mesh = policy_mesh()
+    if mesh is not None:        # FSDP gather-at-use (module docstring)
+        mdl = ("model" if wi.shape[-1] % axis_sizes(mesh)["model"] == 0
+               else None)
+
+        def gather(w, *spec):
+            return constrain(w, NamedSharding(mesh, P(*spec)))
+        wi, wg = gather(wi, None, None, mdl), gather(wg, None, None, mdl)
+        wo = gather(wo, None, mdl, None)
+        router = gather(router, None, None)
 
     ys = []
     for c in range(s // chunk):

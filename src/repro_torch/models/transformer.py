@@ -26,9 +26,10 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from ..launch.sharding import constrain
 from . import attention as attn_lib
 from .common import (apply_rotary, cast, dense_init, embed_init, gelu,
-                     layer_norm, rms_norm, rotary_cos_sin, silu,
+                     in_context, layer_norm, rms_norm, rotary_cos_sin, silu,
                      sinusoidal_at, sinusoidal_positions)
 from .config import ArchConfig, BlockSpec, Stage
 from .moe import moe_ffn
@@ -205,24 +206,39 @@ def init_block(gen, cfg: ArchConfig, spec: BlockSpec, device=None) -> Dict:
     return p
 
 
-def init_params(cfg: ArchConfig, gen=None, device=None) -> Dict:
+def init_params(cfg: ArchConfig, gen=None, device=None, place=None
+                ) -> Dict:
     """The model's params on ``device`` (f32), drawn from the generator
     ``gen`` (None on the ``meta`` device, which only has shapes); an
     encoder-decoder's encoder is drawn after the decoder, as the JAX
-    package draws it."""
+    package draws it.
+
+    ``place``, where given, takes each part as soon as it is drawn:
+    ``place(path, tree)`` for a top-level leaf or norm, and ``place(path,
+    block, u, n)`` for unit ``u`` of a block stacked over ``n`` units,
+    which returns the stacked block at ``u == n - 1``.  ``path`` names
+    the part as ``launch.sharding`` does (tuple entries ``"[i]"``).  A
+    caller that shards the params (``launch.sharding.Placer``) so never
+    holds more than one block in full; the values are the same."""
     if cfg.kind not in KINDS:
         raise _unsupported(f"kind {cfg.kind!r}")
     d, v = cfg.d_model, cfg.padded_vocab
+    put = place or (lambda path, x: x)
     params: Dict[str, Any] = {
-        "embed": embed_init(gen, (v, d), device=device),
-        "final_norm": _norm_params(cfg, d, device),
+        "embed": put(("embed",), embed_init(gen, (v, d), device=device)),
+        "final_norm": put(("final_norm",), _norm_params(cfg, d, device)),
     }
     if not cfg.tied_embeddings:
-        params["head"] = dense_init(gen, (d, v), d, device=device)
+        params["head"] = put(("head",), dense_init(gen, (d, v), d,
+                                                   device=device))
 
-    def stacked(spec, n):
+    def stacked(path, spec, n):
         """``n`` blocks drawn one after another into leaves stacked over
         the units (one block besides the stack is ever alive)."""
+        if place is not None:
+            for u in range(n):
+                out = place(path, init_block(gen, cfg, spec, device), u, n)
+            return out
         first = init_block(gen, cfg, spec, device)
         out = tree_map(lambda a: a.new_empty((n,) + a.shape), first)
         for u in range(n):
@@ -230,14 +246,16 @@ def init_params(cfg: ArchConfig, gen=None, device=None) -> Dict:
             tree_map(lambda o, a: o[u].copy_(a), out, block)
         return out
 
-    def stage_params(stages):
-        return tuple(tuple(stacked(spec, st.n_units) for spec in st.unit)
-                     for st in stages)
+    def stage_params(name, stages):
+        return tuple(tuple(stacked((name, f"[{i}]", f"[{j}]"), spec,
+                                   st.n_units)
+                           for j, spec in enumerate(st.unit))
+                     for i, st in enumerate(stages))
 
-    params["stages"] = stage_params(cfg.stages)
+    params["stages"] = stage_params("stages", cfg.stages)
     if cfg.kind == "encdec":
-        params["enc_stages"] = stage_params((_enc_stage(cfg),))
-        params["enc_norm"] = _norm_params(cfg, d, device)
+        params["enc_stages"] = stage_params("enc_stages", (_enc_stage(cfg),))
+        params["enc_norm"] = put(("enc_norm",), _norm_params(cfg, d, device))
     return params
 
 
@@ -549,13 +567,14 @@ def _units(stage_p, n: int) -> list:
 
 def run_stage(x, stage_p, stage: Stage, cfg: ArchConfig, *, mode: str,
               cache=None, pos=None, enc_out=None, cache_len=None,
-              plain: bool = False, remat: bool = True):
+              plain: bool = False, remat: bool = True, act_sharding=None):
     """The stage's units in order (``lax.scan`` in the JAX package):
     returns (x, caches stacked over ``n_units``, or None in train and
     encode).  In train mode with ``remat`` each unit runs under
     ``torch.utils.checkpoint`` (``jax.checkpoint`` in the JAX package):
     only the units' inputs are kept for the backward, which recomputes
-    each unit's forward."""
+    each unit's forward.  ``act_sharding`` re-places the (B, S, D)
+    activations after every block (`launch.sharding.constrain`)."""
     def unit_fn(x, p_unit, c_unit):
         ncs = []
         for i, spec in enumerate(stage.unit):
@@ -563,6 +582,7 @@ def run_stage(x, stage_p, stage: Stage, cfg: ArchConfig, *, mode: str,
                                 cache=None if c_unit is None else c_unit[i],
                                 pos=pos, enc_out=enc_out,
                                 cache_len=cache_len, plain=plain)
+            x = constrain(x, act_sharding)
             ncs.append(nc)
         return x, tuple(ncs)
 
@@ -571,7 +591,7 @@ def run_stage(x, stage_p, stage: Stage, cfg: ArchConfig, *, mode: str,
         c_unit = None if cache is None else tree_map(lambda a: a[u], cache)
         if mode == "train" and remat:
             x, ncs = torch.utils.checkpoint.checkpoint(
-                unit_fn, x, p_unit, c_unit, use_reentrant=False)
+                in_context(unit_fn), x, p_unit, c_unit, use_reentrant=False)
         else:
             x, ncs = unit_fn(x, p_unit, c_unit)
         new_caches.append(ncs)
@@ -602,7 +622,8 @@ def _run_encoder(params, cfg, enc_embeds):
 
 def forward(params, cfg: ArchConfig, *, tokens, prefix_embeds=None,
             enc_embeds=None, mode: str = "train", cache=None, pos=None,
-            cache_len=None, plain: bool = False, remat: bool = True):
+            cache_len=None, plain: bool = False, remat: bool = True,
+            act_sharding=None):
     """Unified forward.
 
     train:   tokens (B,S) [+ prefix (B,P,D) or encoder (B,Se,D) embeds]
@@ -617,6 +638,11 @@ def forward(params, cfg: ArchConfig, *, tokens, prefix_embeds=None,
     positions to the decoder's input.  ``plain=True`` computes the
     prefill's SSD chunks with the kernel's plain version (the oracle the
     card's prefill is held to); no other block has a kernel.
+
+    act_sharding: an optional ``launch.sharding.NamedSharding`` of the
+    (B, S, D) activations, re-asserted after the embedding and at every
+    block boundary (a ``redistribute`` of ``DTensor`` activations; plain
+    tensors are left as they are).
     """
     enc_out = None
     if cfg.kind == "encdec" and mode != "decode":
@@ -624,7 +650,7 @@ def forward(params, cfg: ArchConfig, *, tokens, prefix_embeds=None,
             raise ValueError(f"{cfg.name}: an encoder-decoder's {mode} "
                              f"needs enc_embeds")
         enc_out = _run_encoder(params, cfg, cast(enc_embeds))
-    x = _embed(params, cfg, tokens)
+    x = constrain(_embed(params, cfg, tokens), act_sharding)
     if prefix_embeds is not None and mode != "decode":
         x = torch.cat([cast(prefix_embeds), x], 1)
     if cfg.kind == "encdec":
@@ -639,7 +665,8 @@ def forward(params, cfg: ArchConfig, *, tokens, prefix_embeds=None,
         x, nc = run_stage(x, params["stages"][si], st, cfg, mode=mode,
                           cache=None if cache is None else cache[si],
                           pos=pos, enc_out=enc_out, cache_len=cache_len,
-                          plain=plain, remat=remat)
+                          plain=plain, remat=remat,
+                          act_sharding=act_sharding)
         new_caches.append(nc)
     if mode == "prefill":
         # only the last position's logits are consumed (next-token)

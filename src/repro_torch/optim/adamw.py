@@ -54,8 +54,8 @@ def tree_unflatten(like, leaves: List[torch.Tensor]):
 
 
 def adamw_init(params) -> Dict[str, Any]:
-    def zeros32(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def zeros32(p):         # a DTensor param's moments are sharded alike
+        return torch.zeros_like(p, dtype=torch.float32)
     dev = tree_leaves(params)[0].device
     return {"m": tree_map(zeros32, params), "v": tree_map(zeros32, params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}

@@ -1,0 +1,225 @@
+"""The port's side of test_torch_lm_mesh.py: gloo ranks on the CPU, one
+process a rank, each building a ``DeviceMesh`` through
+``launch.mesh._device_mesh`` (the helper ``make_production_mesh`` uses)
+and running ``launch.shapes.build_cell``'s cells on ``DTensor``s.
+
+Each rank writes its local shards, keyed ``<leaf path>@<coordinate>``,
+and the whole outputs to ``<out>/rank<r>.npz``; the test holds them to
+the JAX package's shards at the same mesh coordinate.  This module
+imports no JAX: the ranks import it by name."""
+import json
+import os
+import sys
+import traceback
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+#: the cases: mesh shape and axes, config, (seq, batch) of the train
+#: cell (2 microbatches) and, where given, of a prefill cell.  qwen's 8
+#: smoke heads do not divide a model axis of 3, so its train cell takes
+#: the context-parallel path (seq 24: 3 divides the q rows) and its
+#: attention params the head_dim fallback; mixtral's train cell on the
+#: pod mesh gathers its experts at use.  On (2, 2) the train cell runs
+#: once more without its policies ("baseline": f32 scores)
+CASES = {
+    "2x2": {"shape": (2, 2), "axes": ("data", "model"),
+            "arch": "stablelm_1_6b", "train": (16, 4), "prefill": (16, 4),
+            "baseline": True},
+    "2x1x2": {"shape": (2, 1, 2), "axes": ("pod", "data", "model"),
+              "arch": "mixtral_8x7b", "train": (16, 4)},
+    "1x3": {"shape": (1, 3), "axes": ("data", "model"),
+            "arch": "qwen1_5_32b", "train": (24, 4)},
+}
+MICROBATCHES = 2
+SEED = 0
+
+
+def f32_compute():
+    """Both packages' compute type switched to f32 (the tests' tight
+    comparisons); the cells' policies keep their bf16 scores."""
+    import repro_torch.models.common as common
+    common.COMPUTE_DTYPE = torch.float32
+
+
+def cell(case: dict, mode: str, mesh, optimized: bool = True,
+         weights=None):
+    """(fn, placed args, config) of the case's cell on ``mesh``; the
+    params drawn from ``SEED``, or carried from ``weights`` (numpy)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import shapes
+    cfg = get_config(case["arch"], smoke=True)
+    seq, batch = case[mode]
+    spec = shapes.ShapeSpec(f"smoke_{mode}", seq, batch, mode)
+    fn, args, ins, _ = shapes.build_cell(
+        cfg, spec, mesh, optimized=optimized,
+        microbatches=MICROBATCHES if mode == "train" else None)
+    return fn, shapes.materialize(cfg, spec, args, ins, seed=SEED,
+                                  weights=weights), cfg
+
+
+def local_shards(prefix: str, tree, out: dict) -> None:
+    """Each DTensor leaf's local shard under ``<prefix>/<path>@<coord>``
+    (paths spelled as the checkpoints spell them)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.checkpoint.store import _flatten
+    for key, leaf in _flatten(tree):
+        if isinstance(leaf, DTensor):
+            coord = ",".join(str(c) for c in leaf.device_mesh.get_coordinate())
+            out[f"{prefix}/{key}@{coord}"] = leaf.to_local().detach().float(
+                ).numpy()
+
+
+def whole(prefix: str, tree, out: dict) -> None:
+    """Each leaf whole (a collective for a DTensor) under
+    ``<prefix>/<path>``."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.checkpoint.store import _flatten
+    for key, leaf in _flatten(tree):
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
+        if isinstance(leaf, torch.Tensor):
+            out[f"{prefix}/{key}"] = leaf.detach().float().numpy()
+
+
+def _init(rank: int, world: int, out: str) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{out}/store",
+                            rank=rank, world_size=world)
+
+
+def _step_rank(rank: int, world: int, name: str, out: str) -> None:
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import attention
+    case = CASES[name]
+    _init(rank, world, out)
+    f32_compute()
+    mesh = M._device_mesh(case["shape"], case["axes"], "cpu")
+    # record the context-parallel redistributes the cell makes
+    cp_placements = []
+    original = attention._cp_constrain
+
+    def recording(qb, k, v):
+        qb, k, v = original(qb, k, v)
+        if attention._CP_AXIS.get() is not None:
+            cp_placements.append(str(qb.placements))
+        return qb, k, v
+    attention._cp_constrain = recording
+    got = {}
+    fn, (state, batch), cfg = cell(case, "train", mesh)
+    local_shards("in/state", state, got)
+    local_shards("in/batch", batch, got)
+    new_state, metrics = fn(state, batch)
+    local_shards("out/state", new_state, got)
+    whole("out/state", new_state, got)
+    whole("out/metrics", metrics, got)
+    if case.get("baseline"):
+        fn, args, _ = cell(case, "train", mesh, optimized=False)
+        base_state, base_metrics = fn(*args)
+        whole("base/state", base_state, got)
+        whole("base/metrics", base_metrics, got)
+    if "prefill" in case:
+        # the params as numpy from the test's weights checkpoint (the
+        # values the JAX run restores), placed leaf by leaf
+        from repro_torch.checkpoint import restore_checkpoint
+        from repro_torch.models.transformer import init_params, tree_map
+        like = {"params": init_params(cfg, device="meta")}
+        saved, _, _ = restore_checkpoint(
+            Path(out).parent / f"weights_{case['arch']}", like, device="cpu")
+        weights = tree_map(lambda t: t.numpy(), saved["params"])
+        fn, (params, pbatch), _ = cell(case, "prefill", mesh,
+                                       weights=weights)
+        local_shards("in/prefill_batch", pbatch, got)
+        token, cache = fn(params, pbatch)
+        local_shards("out/cache", cache, got)
+        whole("out/token", {"t": token}, got)
+        whole("out/cache", cache, got)
+    from repro_torch.checkpoint import save_checkpoint
+    save_checkpoint(f"{out}/ckpt", 1, new_state)
+    np.savez(f"{out}/rank{rank}.npz", **got)
+    meta = {"coord": mesh.get_coordinate(), "cp": cp_placements}
+    Path(f"{out}/rank{rank}.json").write_text(json.dumps(meta))
+    dist.destroy_process_group()
+
+
+def _restore_rank(rank: int, world: int, name: str, out: str) -> None:
+    """Restore the checkpoint the case's step launch saved (in
+    ``<out>/../port_<name>/ckpt``) onto ``derive_elastic_mesh(world,
+    model_parallel=2)``'s mesh."""
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.steps import init_train_state
+    from repro_torch.runtime.recovery import derive_elastic_mesh
+    case = CASES[name]
+    _init(rank, world, out)
+    plan = derive_elastic_mesh(world, model_parallel=2)
+    mesh = M._device_mesh(plan.shape, plan.axes, "cpu")
+    cfg = get_config(case["arch"], smoke=True)
+    like = init_train_state(cfg, None, "meta")
+    psh = sh.param_shardings(cfg, like["params"], mesh)
+    shardings = {"params": psh, "opt": sh.opt_shardings(psh, mesh)}
+    state, step, _ = restore_checkpoint(
+        Path(out).parent / f"port_{name}" / "ckpt", like, shardings=shardings)
+    got = {}
+    local_shards("restored", state, got)
+    whole("restored", state, got)
+    np.savez(f"{out}/rank{rank}.npz", **got)
+    meta = {"coord": mesh.get_coordinate(), "step": step,
+            "shape": list(plan.shape), "axes": list(plan.axes)}
+    Path(f"{out}/rank{rank}.json").write_text(json.dumps(meta))
+    dist.destroy_process_group()
+
+
+WORKERS = {"step": _step_rank, "restore": _restore_rank}
+
+
+def _entry(rank: int, world: int, kind: str, name: str, out: str) -> None:
+    try:
+        WORKERS[kind](rank, world, name, out)
+    except BaseException:
+        Path(f"{out}/rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def start(kind: str, name: str, world: int, out):
+    """Start ``world`` gloo ranks of ``kind`` ("step" or "restore") for
+    the case ``name`` into ``out``; :func:`finish` waits for them, so
+    launches that do not depend on each other run at once."""
+    import torch.multiprocessing as mp
+    out = Path(out)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "store").unlink(missing_ok=True)     # a fresh rendezvous
+    ctx = mp.start_processes(_entry, args=(world, kind, name, str(out)),
+                             nprocs=world, join=False, start_method="spawn")
+    return ctx, kind, name, world, out
+
+
+def finish(launched) -> list:
+    """Wait for a :func:`start`'s ranks; returns each rank's (npz,
+    meta)."""
+    ctx, kind, name, world, out = launched
+    try:
+        while not ctx.join():
+            pass
+    except Exception as e:
+        errs = [p.read_text() for p in sorted(out.glob("rank*.err"))]
+        raise AssertionError(f"{kind} {name}: a rank failed:\n"
+                             + "\n".join(errs)) from e
+    return [(dict(np.load(out / f"rank{r}.npz")),
+             json.loads((out / f"rank{r}.json").read_text()))
+            for r in range(world)]
+
+
+def launch(kind: str, name: str, world: int, out) -> list:
+    """:func:`start` and :func:`finish` in one."""
+    return finish(start(kind, name, world, out))
+
+
+if __name__ == "__main__":          # one case by hand: kind name world out
+    sys.path[:0] = [str(Path(__file__).resolve().parents[1] / "src")]
+    launch(sys.argv[1], sys.argv[2], int(sys.argv[3]), sys.argv[4])
+    print("ok", os.listdir(sys.argv[4]))

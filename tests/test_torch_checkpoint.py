@@ -289,7 +289,7 @@ def test_restore_refuses_what_it_cannot_hold(tmp_path):
     like["params"]["extra"] = torch.empty((1,), device="meta")
     with pytest.raises(KeyError, match="params/extra"):
         restore_checkpoint(tmp_path, like, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="shardings hold 0 leaves"):
         restore_checkpoint(tmp_path, _meta(s), device="cpu", shardings={})
     with pytest.raises(FileNotFoundError):
         restore_checkpoint(tmp_path / "none", _meta(s), device="cpu")

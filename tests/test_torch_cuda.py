@@ -19,7 +19,9 @@ MoE, MLA, RG-LRU, the vision prefix and the encoder-decoder, with
 against the CPU (no kernel launched), a checkpoint restored onto the
 card, and the CIM macro mesh over ``[cuda:0] * 8``: the sharded forward
 against the single-device plan, the oracle and the CPU mesh, and
-``train_plan`` over the mesh against no mesh.  Marked
+``train_plan`` over the mesh against no mesh; and the LM cells of
+``launch.shapes.build_cell`` on ``DTensor``s over a (1, 1) CUDA
+``DeviceMesh`` of a world-1 NCCL group against plain tensors.  Marked
 ``cuda``: without a CUDA device each test skips.  On the card:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
@@ -1080,3 +1082,57 @@ def test_mesh_training_on_the_card(cuda):
         losses[name] = []
         ttrain.train_plan(net, steps=3, mesh=msh, losses=losses[name], **kw)
     np.testing.assert_allclose(losses["mesh"], losses["vmap"], rtol=1e-5)
+
+
+@pytest.fixture
+def nccl_world_1(cuda):
+    """A world-1 NCCL process group on localhost (MASTER_ADDR /
+    MASTER_PORT), destroyed after the test."""
+    import os
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    os.environ["MASTER_ADDR"] = "localhost"
+    os.environ["MASTER_PORT"] = str(port)
+    dist.init_process_group("nccl", rank=0, world_size=1)
+    try:
+        yield cuda
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["stablelm_1_6b", "qwen1_5_32b",
+                                  "mixtral_8x7b"])
+def test_dtensor_cells_on_the_card(nccl_world_1, arch):
+    """build_cell's train and prefill cells on a (1, 1) ("data",
+    "model") CUDA DeviceMesh, params, Adam state and batch as DTensors,
+    against the same cells on plain tensors (the host mesh): the loss,
+    gradient norm, every new param and moment, the next tokens and the
+    cache within 1e-6 relative; nothing falls back to the CPU."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.checkpoint.store import _flatten
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import shapes
+    cfg = get_config(arch, smoke=True)
+    mesh = meshlib._device_mesh((1, 1), ("data", "model"), "cuda")
+    host = meshlib.make_host_mesh()
+    for mode, seq in (("train", 16), ("prefill", 16)):
+        spec = shapes.ShapeSpec(f"smoke_{mode}", seq, 2, mode)
+        outs = []
+        for m in (mesh, host):
+            fn, args, ins, _ = shapes.build_cell(cfg, spec, m)
+            outs.append(_flatten(fn(*shapes.materialize(cfg, spec, args,
+                                                        ins))))
+        assert len(outs[0]) == len(outs[1])
+        for (key, a), (_, b) in zip(*outs):
+            assert isinstance(a, DTensor) and a.device.type == "cuda", key
+            assert b.device.type == "cuda"
+            a = a.full_tensor()
+            if a.dtype in (torch.int32, torch.int64):
+                assert torch.equal(a, b), key
+            else:
+                _close(a.float(), b.float(), 1e-6)

@@ -63,7 +63,7 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.tune, repro_torch.core.simulator, "
             "repro_torch.checkpoint, repro_torch.data.pipeline, "
             "repro_torch.optim.compression, repro_torch.launch.mesh, "
-            "repro_torch.launch.sharding\n"
+            "repro_torch.launch.sharding, repro_torch.launch.shapes\n"
             "from repro_torch.configs import CNN_IDS, get_config\n"
             "get_config('stablelm_1_6b'); get_config('whisper_base')\n"
             "[get_config(c) for c in CNN_IDS]\n"
