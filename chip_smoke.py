@@ -276,7 +276,18 @@ Phases, each of which raises on failure (exit code != 0):
     optimized train cell cut to 2 units, seq 1024 (two q blocks, so the
     inner remat streams), card vs CPU: the loss within 1e-2 relative,
     the logits under the cell's policy within 1.8e-2 of max|logit|;
-22. a ``{"kernels": [...]}`` line: per kernel its launches, error, time
+22. the roofline against a measured step (no kernel; every launch count
+    0 over the phase): phase 21c's optimized stablelm-1.6b train cell
+    cut to 2 units (seq 1024, batch 1) on a (1, 1) CUDA ``DeviceMesh``
+    of a world-1 NCCL group, its median step time over a few calls and
+    one more call under ``launch.op_analysis.OpCounter``; the same cell
+    through ``launch.dryrun``'s meta path on a fake world-1 group in a
+    subprocess (a fake and an NCCL group cannot share a process).  The
+    FLOPs, HBM bytes and collective bytes must be equal; the measured
+    step is printed beside ``t_compute``, ``t_memory`` and the bound on
+    H100 constants, and its ``roofline_fraction`` (useful FLOPs / the
+    bf16 peak / the measured time) must not pass 1.05;
+23. a ``{"kernels": [...]}`` line: per kernel its launches, error, time
     at its path's shapes, the plain version's time, the least time the
     card could take (its bound) and the library call's time (and, for
     the kernels phases 15 and 16 run, their launches there);
@@ -3653,6 +3664,176 @@ def prod_phase(dev, card: str) -> None:
           f"{card}")
 
 
+#: phase 22, the roofline against a measured step: phase 21c's cell
+#: (PROD_ARCH cut to CUT_UNITS units, the optimized train cell at
+#: PROD_CARD_CPU's (seq, batch), one microbatch) on a (1, 1) CUDA
+#: DeviceMesh; timed calls after a warm-up.  The count is held to the
+#: clock: the bound (the largest of t_compute, t_memory and t_coll from
+#: the counted FLOPs and bytes) is a least time, so a measured step
+#: shorter than ROOF_MIN_OVER_BOUND of it means the count is too large.
+#: The roofline fraction (model_flops, 6*N*D, at the peak over the
+#: measured step) holds the analytic model FLOPs to the clock, not the
+#: count: over ROOF_MAX_FRACTION the step would beat the card's peak.
+ROOF_STEPS = 5
+ROOF_MIN_OVER_BOUND = 0.9
+ROOF_MAX_FRACTION = 1.05
+#: the dry run's count of the same cell, in a subprocess on a fake
+#: world-1 group: prints one JSON line of its totals
+ROOF_DRYRUN = r"""
+import json, sys
+sys.path.insert(0, "src")
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun, shapes
+from repro_torch.launch.mesh import _device_mesh
+arch, units, seq, batch = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), \
+    int(sys.argv[4])
+import dataclasses
+cfg = get_config(arch)
+cfg = dataclasses.replace(cfg, stages=tuple(
+    dataclasses.replace(st, n_units=min(st.n_units, units))
+    for st in cfg.stages))
+spec = shapes.ShapeSpec("train_cut", seq, batch, "train")
+with dryrun.fake_group(1):
+    mesh = _device_mesh((1, 1), ("data", "model"), "cpu")
+    t, arg_b, out_b, secs = dryrun.count_cell(cfg, spec, mesh,
+                                              microbatches=1)
+print(json.dumps({"flops": t.flops, "hbm_bytes": t.hbm_bytes,
+                  "coll_bytes": t.coll_bytes, "ops": t.ops,
+                  "seconds": secs, "by_op": [list(k) + v for k, v in
+                                             t.by_op.items()]}))
+"""
+
+
+def _by_op_gap(card: dict, meta: dict, top: int = 12) -> list:
+    """The (group, op) rows whose (calls, bytes, flops) differ between the
+    card's count and the dry run's, largest byte gap first."""
+    keys = set(card) | set(meta)
+    gaps = [(k, card.get(k, [0, 0.0, 0.0]), meta.get(k, [0, 0.0, 0.0]))
+            for k in keys if card.get(k) != meta.get(k)]
+    gaps.sort(key=lambda g: -abs(g[1][1] - g[2][1]))
+    return gaps[:top]
+
+
+def roofline_phase(dev, card: str) -> None:
+    """Phase 22: the cut train cell's op counts on the card against the
+    dry run's on meta tensors (equal), and its measured median step
+    against the H100 roofline terms (no shorter than ROOF_MIN_OVER_BOUND
+    of the counts' bound; model FLOPs at no more than the peak); raises
+    on any failed check.  The dry run's subprocess starts after the
+    timed steps, so they share the host with nothing of this phase."""
+    import os
+    import socket
+    import statistics
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch import shapes
+    from repro_torch.launch.op_analysis import OpCounter
+    t_phase = time.perf_counter()
+    reset_all_counts()
+    cfg = cut_depth(get_config(PROD_ARCH), CUT_UNITS)
+    seq, batch = PROD_CARD_CPU
+    spec = shapes.ShapeSpec("train_cut", seq, batch, "train")
+    meta_run = None
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    os.environ["MASTER_ADDR"] = "localhost"
+    os.environ["MASTER_PORT"] = str(port)
+    dist.init_process_group("nccl", rank=0, world_size=1)
+    try:
+        mesh = meshlib._device_mesh((1, 1), ("data", "model"), "cuda")
+        fn, args, ins, _ = shapes.build_cell(cfg, spec, mesh,
+                                             microbatches=1)
+        real = shapes.materialize(cfg, spec, args, ins, seed=SEED)
+        ms = []
+        for r in range(ROOF_STEPS + 1):
+            out, t, _ = _timed(fn, real)
+            del out
+            if r:
+                ms.append(t)
+        meta_run = subprocess.Popen(
+            [sys.executable, "-c", ROOF_DRYRUN, PROD_ARCH, str(CUT_UNITS),
+             str(seq), str(batch)], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        with OpCounter("cuda") as counter:
+            out = fn(*real)
+        torch.cuda.synchronize()
+        loss = float(out[1]["loss"].full_tensor())
+        del out, real
+    except BaseException:
+        if meta_run is not None:
+            meta_run.kill()
+            meta_run.wait()
+        raise
+    finally:
+        dist.destroy_process_group()
+    try:
+        stdout, stderr = meta_run.communicate(timeout=300)
+    finally:
+        meta_run.kill()
+    if meta_run.returncode != 0:
+        raise AssertionError(f"the dry run of the cut cell failed:\n"
+                             f"{stderr[-3000:]}")
+    meta = json.loads(stdout.strip().splitlines()[-1])
+    got = counter.totals
+    med = statistics.median(ms)
+    terms = dryrun.terms(cfg, spec, got, 1)
+    frac = terms.fraction_at(med / 1e3)
+    over_bound = med / 1e3 / terms.bound
+    coll_card = got.coll_bytes.get("total", 0.0)
+    coll_meta = meta["coll_bytes"].get("total", 0.0)
+    equal = (got.flops == meta["flops"] and
+             got.hbm_bytes == meta["hbm_bytes"] and coll_card == coll_meta)
+    print(f"[roofline] 22 {cfg.name} cut to {cfg.n_layers} blocks, optimized "
+          f"train cell (seq {seq}, batch {batch}, 1 microbatch) on a (1, 1) "
+          f"CUDA DeviceMesh: loss {loss:.6f}; per-rank counts on the card "
+          f"vs the dry run on meta (fake world-1 group, {meta['seconds']:.1f}"
+          f" s): FLOPs {got.flops:.6e} vs {meta['flops']:.6e}, HBM bytes "
+          f"{got.hbm_bytes:.6e} vs {meta['hbm_bytes']:.6e}, collective bytes "
+          f"{coll_card:.6e} vs {coll_meta:.6e}, ops {got.ops} vs "
+          f"{meta['ops']} (equal {equal})")
+    print(f"[roofline] 22 measured step {med:.4f} ms (median of {ROOF_STEPS}:"
+          f" {', '.join(f'{t:.4f}' for t in ms)}) vs H100 terms (analytic, "
+          f"{terms.compute_dtype} peak {terms.peak_flops:.3e} FLOP/s, "
+          f"{rl.HBM_BW:.3e} B/s): t_compute {terms.t_compute * 1e3:.4f} ms, "
+          f"t_memory {terms.t_memory * 1e3:.4f} ms, t_coll "
+          f"{terms.t_coll * 1e3:.4f} ms, bound {terms.bound * 1e3:.4f} ms "
+          f"({terms.dominant}); measured / bound {over_bound:.6f} (at "
+          f"least {ROOF_MIN_OVER_BOUND}); model FLOPs "
+          f"{terms.model_flops_total:.6e} (useful / counted "
+          f"{terms.useful_flops_fraction:.4f}); roofline_fraction on the "
+          f"measured step {frac:.6f} (limit {ROOF_MAX_FRACTION}) on {card}")
+    top = sorted(got.hbm_by_group.items(), key=lambda kv: -kv[1])[:6]
+    print("[roofline] 22 top HBM groups on the card: " + ", ".join(
+        f"{g} {b / 1e9:.3f} GB" for g, b in top))
+    if not equal:
+        card_ops = {tuple(k): v for k, v in got.by_op.items()}
+        meta_ops = {(r[0], r[1]): r[2:] for r in meta["by_op"]}
+        for k, a, b in _by_op_gap(card_ops, meta_ops):
+            print(f"[roofline] 22 gap {k}: card {a} vs meta {b}")
+        raise AssertionError("the card's op counts differ from the dry "
+                             "run's on the same cell")
+    if not over_bound >= ROOF_MIN_OVER_BOUND:
+        raise AssertionError(f"the measured step is {over_bound} of the "
+                             f"bound the counts give, under "
+                             f"{ROOF_MIN_OVER_BOUND}: the count is too "
+                             f"large")
+    if not 0 < frac <= ROOF_MAX_FRACTION:
+        raise AssertionError(f"roofline_fraction {frac} of the measured step "
+                             f"is out of (0, {ROOF_MAX_FRACTION}]")
+    counts = launch_counts()
+    print(f"[roofline] kernel launches over phase 22: {counts}")
+    if any(counts.values()):
+        raise AssertionError(f"the roofline cell launched {counts}; its "
+                             f"path has no kernel")
+    print(f"[roofline] phase 22 in {time.perf_counter() - t_phase:.3f} s on "
+          f"{card}")
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -3896,7 +4077,9 @@ def main() -> int:
     mesh_phase(dev, card)
     # -- 21. the LM production mesh: build_cell, its policies, DTensors ---
     prod_phase(dev, card)
-    print(f"[main] phases 1-21 in {time.perf_counter() - t_main:.3f} s")
+    # -- 22. the roofline against a measured step --------------------------
+    roofline_phase(dev, card)
+    print(f"[main] phases 1-22 in {time.perf_counter() - t_main:.3f} s")
     for row in rows:
         if row["name"] in served:
             row["serving_launches"] = served[row["name"]]

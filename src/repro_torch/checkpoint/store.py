@@ -23,9 +23,9 @@ continues during the write.
 
 Meshes: a state of ``DTensor`` leaves (an LM cell on a ``DeviceMesh``) is
 gathered whole on every rank and written by rank 0 alone;
-``restore_checkpoint(shardings=)`` reads each leaf whole and places it
-by its ``launch.sharding.NamedSharding`` — on another mesh than the one
-it was saved from, too (elastic resharding).
+``restore_checkpoint(shardings=)`` reads each leaf on the host and sends
+each rank only its shard by its ``launch.sharding.NamedSharding`` — on
+another mesh than the one it was saved from, too (elastic resharding).
 """
 from __future__ import annotations
 
@@ -152,9 +152,12 @@ def restore_checkpoint(directory, like, *, step: Optional[int] = None,
     tensors give the shapes alone): (state with every leaf in its stored
     dtype, step, extra).  ``shardings`` (optional, a tree of
     ``launch.sharding.NamedSharding`` in ``like``'s structure) places each
-    leaf, read whole, for the *current* mesh — elastic resharding; a leaf
-    without one goes to ``resolve_device(device)``."""
-    from ..launch.sharding import place
+    leaf for the *current* mesh — elastic resharding: on a
+    ``DeviceMesh`` each rank slices its own shard from the host array and
+    sends only that to its device (``launch.sharding.place_host``), so no
+    leaf is ever whole on a device; a leaf without one goes to
+    ``resolve_device(device)``."""
+    from ..launch.sharding import place_host
     flat_sh = (None if shardings is None
                else [s for _, s in _flatten(shardings)])
     dev = resolve_device(device) if shardings is None else None
@@ -182,7 +185,7 @@ def restore_checkpoint(directory, like, *, step: Optional[int] = None,
                 raise ValueError(f"{key}: shape {arr.shape} != "
                                  f"{tuple(leaf.shape)}")
             if flat_sh is not None and flat_sh[i] is not None:
-                out_leaves.append(place(torch.tensor(arr), flat_sh[i]))
+                out_leaves.append(place_host(arr, flat_sh[i]))
                 continue
             dev = dev or resolve_device(device)
             out_leaves.append(torch.tensor(arr, device=dev))

@@ -343,11 +343,12 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     """x (B,S,H,P); dt (B,S,H) post-softplus; a_log (H,); b/c (B,S,G,N).
     S % chunk == 0.  Returns (y_intra (B,S,H,P) in x's dtype, states
     (B, S/chunk, H, P, N) f32).  CUDA tensors launch the kernel; CPU
-    tensors take :func:`ssd_chunk_plain`.  No backward
-    (:func:`_build.no_backward`)."""
+    tensors take :func:`ssd_chunk_plain`, and so do ``meta`` tensors
+    (shapes without data: the dry run, ``launch.dryrun``, which reaches
+    no kernel).  No backward (:func:`_build.no_backward`)."""
     no_backward("ssd_chunk", x, dt, a_log, b, c)
     if x.device.type == "cuda":
         return ssd_chunk_cuda(x, dt, a_log, b, c, chunk=chunk)
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return ssd_chunk_plain(x, dt, a_log, b, c, chunk=chunk)
     raise ValueError(f"ssd_chunk: unsupported device {x.device}")

@@ -135,6 +135,70 @@ def place(x, sharding: Optional[NamedSharding]):
     return x.to(mesh_device(mesh))
 
 
+def local_part(shape, mesh, placements):
+    """(local shape, global offset) of this rank's shard of a tensor of
+    global ``shape`` placed by ``placements`` on a ``DeviceMesh``."""
+    import torch
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    return compute_local_shape_and_global_offset(torch.Size(shape), mesh,
+                                                 placements)
+
+
+def from_local(local, mesh, placements, shape, stride=None):
+    """The ``DTensor`` of global ``shape`` (contiguous ``stride`` unless
+    given) whose shard on this rank is ``local``, unchecked: every rank
+    passes its own part (:func:`local_part`)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    shape = torch.Size(shape)
+    if stride is None:
+        stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=shape, stride=stride)
+
+
+def place_host(full, sharding: NamedSharding):
+    """A full value (a numpy array, or a tensor on any device), the same
+    on every rank, placed by ``sharding`` without its whole reaching a
+    device: on a ``DeviceMesh`` each rank copies only its local shard,
+    sliced where the value lies, to its device and wraps it as the
+    ``DTensor`` (``jax.device_put`` of a host array); on a one-device
+    mesh the value goes whole to that device, as :func:`place` sends
+    it."""
+    import torch
+    mesh = sharding.mesh
+    if not is_device_mesh(mesh):
+        return place(full if isinstance(full, torch.Tensor)
+                     else torch.tensor(full), sharding)
+    pl = sharding.placements
+    local, offset = local_part(full.shape, mesh, pl)
+    part = full[tuple(slice(o, o + n) for o, n in zip(offset, local))]
+    dev = mesh_device(mesh)
+    part = (part.to(dev, copy=True) if isinstance(part, torch.Tensor)
+            else torch.tensor(part, device=dev))
+    return from_local(part, mesh, pl, full.shape)
+
+
+def gather_uneven(x, dim: int, size: Optional[int] = None):
+    """A ``DTensor`` split on ``dim`` over a mesh dim whose size does not
+    divide ``size`` (default: the dim's own), gathered over that mesh
+    dim (DTensor will not flatten or view such a split: mamba2's 24 heads
+    on a 16-way "model" axis, q's heads grouped by 8 kv heads there);
+    anything else as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return x
+    size = x.shape[dim] if size is None else size
+    sizes = x.device_mesh.shape
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == dim
+          and size % sizes[i] else p
+          for i, p in enumerate(x.placements)]
+    if pl == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pl)
+
+
 def constrain(x, sharding: Optional[NamedSharding]):
     """``jax.lax.with_sharding_constraint``: a ``DTensor`` redistributed
     to ``sharding``; a plain tensor (one device) as it is."""
@@ -217,8 +281,10 @@ class Placer:
     shard by the spec without its leading None) into its local stack,
     which becomes the ``DTensor`` once its last unit is in.  So a rank
     holds no more than one block in full beside its shards: what lets a
-    model place that does not fit one device whole.  :meth:`tree` places
-    a tree of full tensors (weights carried as numpy) the same way."""
+    model place that does not fit one device whole.  Each part is cut to
+    this rank's shard where it was drawn (:func:`place_host`): no
+    collective scatters it.  :meth:`tree` places a tree of full tensors
+    (weights carried as numpy) the same way."""
 
     def __init__(self, shardings):
         self.by_path = {}
@@ -245,9 +311,9 @@ class Placer:
     def _leaf(self, names, x, u=None, n=None):
         s = self.by_path[names]
         if u is None:
-            return place(x, s)
+            return place_host(x, s)
         assert not s.spec or s.spec[0] is None, (names, s.spec)
-        part = place(x, NamedSharding(s.mesh, P(*s.spec[1:])))
+        part = place_host(x, NamedSharding(s.mesh, P(*s.spec[1:])))
         local = part.to_local() if is_device_mesh(s.mesh) else part
         if u == 0:
             self.units[names] = local.new_empty((n,) + tuple(local.shape))
@@ -257,13 +323,8 @@ class Placer:
         stack = self.units.pop(names)
         if not is_device_mesh(s.mesh):
             return stack
-        import torch
-        from torch.distributed.tensor import DTensor
-        shape = torch.Size((n,) + tuple(x.shape))
-        return DTensor.from_local(stack, s.mesh, s.placements,
-                                  run_check=False, shape=shape,
-                                  stride=torch.empty(shape, device="meta")
-                                  .stride())
+        return from_local(stack, s.mesh, s.placements,
+                          (n,) + tuple(x.shape))
 
 
 def constrain_tree(tree, shardings):
@@ -347,8 +408,7 @@ def rewrap(tree, mesh):
             sizes = axis_sizes(mesh)
             new = [pl["data"] if sizes[a] > 1 else Replicate()
                    for a in ("pod", "data")] + [pl["model"]]
-        return DTensor.from_local(x.to_local(), mesh, new, run_check=False,
-                                  shape=x.shape, stride=x.stride())
+        return from_local(x.to_local(), mesh, new, x.shape, x.stride())
     return map_with_path(one, tree)
 
 

@@ -139,10 +139,27 @@ def make_train_step(cfg: ArchConfig, tc: TrainConfig, act_sharding=None, *,
     return train_step
 
 
+def _whole_vocab(logits: torch.Tensor) -> torch.Tensor:
+    """``DTensor`` logits gathered over the vocabulary (last) dim and
+    any partial sum, the batch split kept: the argmax is then local to a
+    shard.  DTensor's own argmax over a split dim gathers each shard's
+    best with a view that fails where the batch does not split over
+    "data" (batch 1: every long_500k cell).  Plain tensors as they are."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not isinstance(logits, DTensor):
+        return logits
+    last = logits.ndim - 1
+    pl = [Replicate() if isinstance(p, Partial) or (
+        isinstance(p, Shard) and p.dim == last) else p
+        for p in logits.placements]
+    return logits.redistribute(logits.device_mesh, pl)
+
+
 def _greedy(cfg: ArchConfig, logits: torch.Tensor) -> torch.Tensor:
-    """Argmax over the real (unpadded) vocabulary of (B, V) logits."""
+    """Argmax over the real (unpadded) vocabulary of (B, V) logits: the
+    first index of the maximum, as ``jnp.argmax`` takes it."""
     mask = vocab_mask(cfg, logits.device)
-    return logits.float().masked_fill(~mask, -1e30).argmax(-1)
+    return _whole_vocab(logits).float().masked_fill(~mask, -1e30).argmax(-1)
 
 
 def make_prefill_step(cfg: ArchConfig, cache_len: Optional[int] = None,

@@ -41,7 +41,8 @@ import torch
 import torch.utils.checkpoint
 
 from ..launch.mesh import axis_sizes
-from ..launch.sharding import NamedSharding, P, constrain
+from ..launch.sharding import (NamedSharding, P, constrain, from_local,
+                               gather_uneven, local_part)
 from .common import in_context
 
 NEG_INF = -1e30
@@ -144,9 +145,7 @@ def _local_attend(q, k, v, pos_q, pos_k, **kw):
     sharded as q.  DTensor's own propagation through the block's 5-d
     einsums searches strategies exponentially in the mesh's dims (a
     (2, 1, 2) mesh took minutes a step on the CPU)."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
+    from torch.distributed.tensor import Partial, Replicate, Shard
     mesh = q.device_mesh
     # per mesh dim: q's placement, k/v's, and the placement of k/v's
     # local gradient: where q's rows (or query heads) are split and k/v
@@ -168,15 +167,99 @@ def _local_attend(q, k, v, pos_q, pos_k, **kw):
     q = q.redistribute(mesh, qp)
     k, v = k.redistribute(mesh, kvp), v.redistribute(mesh, kvp)
     ql = q.to_local()
-    _, offset = compute_local_shape_and_global_offset(q.shape, mesh, qp)
+    _, offset = local_part(q.shape, mesh, qp)
     rows = pos_q[offset[1]:offset[1] + ql.shape[1]]
     out = _attend_block(ql, k.to_local(grad_placements=kv_grad),
                         v.to_local(grad_placements=kv_grad), rows, pos_k,
                         **kw).contiguous()     # the global stride below
-    shape = torch.Size(tuple(q.shape[:4]) + (v.shape[-1],))
-    return DTensor.from_local(out, mesh, qp, run_check=False, shape=shape,
-                              stride=torch.empty(shape, device="meta")
-                              .stride())
+    return from_local(out, mesh, qp, tuple(q.shape[:4]) + (v.shape[-1],))
+
+
+def _head_dim_split(w, dim: int) -> bool:
+    """Whether ``w`` is a ``DTensor`` split on its head_dim ``dim``: the
+    fallback of ``launch.sharding.param_spec`` where the heads do not
+    divide the "model" axis."""
+    from torch.distributed.tensor import DTensor, Shard
+    return isinstance(w, DTensor) and any(
+        isinstance(p, Shard) and p.dim == dim for p in w.placements)
+
+
+def _local_product(eq: str, x, w, w_split: tuple, x_dim: dict, out_split):
+    """``torch.einsum(eq, x, w)`` of ``DTensor`` operands on each shard's
+    local tensors.  Per mesh dim: where ``w`` is split on a dim of
+    ``w_split`` it keeps that split and ``x`` takes the matching one
+    (``x_dim[w dim]``, None: whole), the output ``out_split(w dim)``
+    (a ``Shard`` or a ``Partial`` sum); elsewhere ``w`` is gathered and
+    ``x`` keeps a split of its batch or sequence dim (else is gathered),
+    which the output keeps.  The gradients' placements follow: a whole
+    operand against a split partner gets a partial gradient."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = w.device_mesh
+    xp, wp, op, xg, wg = [], [], [], [], []
+    for px, pw in zip(x.placements, w.placements):
+        if isinstance(pw, Shard) and pw.dim in w_split:
+            d = x_dim[pw.dim]
+            wp.append(pw)
+            wg.append(pw)
+            xp.append(Replicate() if d is None else Shard(d))
+            xg.append(Partial() if d is None else Shard(d))
+            op.append(out_split(pw.dim))
+        elif isinstance(px, Shard) and px.dim in (0, 1):
+            xp.append(px)
+            xg.append(px)
+            wp.append(Replicate())
+            wg.append(Partial())
+            op.append(px)
+        else:
+            xp.append(Replicate())
+            xg.append(Replicate())
+            wp.append(Replicate())
+            wg.append(Replicate())
+            op.append(Replicate())
+    x, w = x.redistribute(mesh, xp), w.redistribute(mesh, wp)
+    out = torch.einsum(eq, x.to_local(grad_placements=xg),
+                       w.to_local(grad_placements=wg))
+    shape = torch.einsum(eq, torch.empty(x.shape, device="meta"),
+                         torch.empty(w.shape, device="meta")).shape
+    return from_local(out, mesh, op, shape)
+
+
+def project_heads(x, w):
+    """The q/k/v projection ``einsum("bsd,dhe->bshe", x, w)``.  Where
+    ``w`` takes the head_dim fallback (a ``DTensor`` split on its last
+    dim), on local shards (:func:`_local_product`): DTensor's own einsum
+    flattens (H, dh) and cannot view a split head_dim back.  The output
+    keeps a split of the heads and the batch and is gathered over
+    head_dim, along which rotary, the cache write and attention act
+    (attention would gather it: :func:`_local_attend`)."""
+    if not _head_dim_split(w, 2):
+        return torch.einsum("bsd,dhe->bshe", x, w)
+    from torch.distributed.tensor import Replicate, Shard
+    out = _local_product("bsd,dhe->bshe", x, w, (1, 2), {1: None, 2: None},
+                         lambda d: Shard(d + 1))
+    return out.redistribute(out.device_mesh, [
+        Replicate() if p == Shard(3) else p for p in out.placements])
+
+
+def merge_heads(out, wo):
+    """The output projection ``einsum("bshe,hed->bsd", out, wo)``.  Where
+    ``wo`` takes the head_dim fallback (split on its dim 1), on local
+    shards: each rank sums its head or head_dim slice, so the result is a
+    ``Partial`` sum over that mesh dim."""
+    if not _head_dim_split(wo, 1):
+        return torch.einsum("bshe,hed->bsd", out, wo)
+    from torch.distributed.tensor import Partial
+    return _local_product("bshe,hed->bsd", out, wo, (0, 1), {0: 2, 1: 3},
+                          lambda d: Partial())
+
+
+def group_heads(q, hkv: int):
+    """q (B, S, Hq, Dh) viewed as (B, S, Hkv, G, Dh).  A ``DTensor`` q
+    split on its heads over a mesh dim that does not divide ``hkv`` (8
+    kv heads on a 16-way "model" axis) is gathered on that dim first:
+    DTensor cannot view such a split."""
+    b, s, hq, dh = q.shape
+    return gather_uneven(q, 2, size=hkv).reshape(b, s, hkv, hq // hkv, dh)
 
 
 def _attend(q, k, v, pos_q, pos_k, **kw):
@@ -252,9 +335,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, sq, hq, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     dv = v.shape[-1]
-    g = hq // hkv
     scale = 1.0 / math.sqrt(dh)
-    qg = q.reshape(b, sq, hkv, g, dh)
+    qg = group_heads(q, hkv)
 
     def positions(start, n):
         return start + torch.arange(n, device=q.device)
@@ -333,14 +415,39 @@ def update_slice(buf: torch.Tensor, new: torch.Tensor, pos: int
 
     A write past the end raises ``IndexError``, where the JAX package's
     ``dynamic_update_slice`` clamps the start so the write fits (and
-    overwrites earlier slots)."""
+    overwrites earlier slots).  A ``DTensor`` cache is written on local
+    shards (:func:`_update_local`)."""
+    from torch.distributed.tensor import DTensor
     length, n = buf.shape[1], new.shape[1]
     if not 0 <= pos <= length - n:
         raise IndexError(f"{n} cache position(s) at {pos} do not fit a "
                          f"cache of length {length}")
+    if isinstance(buf, DTensor):
+        return _update_local(buf, new, pos)
     out = buf.clone()
     out[:, pos:pos + n] = new
     return out
+
+
+def _update_local(buf, new, pos: int):
+    """:func:`update_slice` of a ``DTensor`` cache: ``new``, gathered over
+    the mesh dims that split the cache's sequence (and split as the cache
+    on every other dim), is written by each rank into the part of its
+    local shard that ``[pos, pos + n)`` covers.  DTensor's own slice
+    assignment into a sequence-split cache writes into a gathered copy
+    and loses the write."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = buf.device_mesh
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+          for p in buf.placements]
+    new = new.redistribute(mesh, pl).to_local()
+    local = buf.to_local().clone()
+    _, offset = local_part(buf.shape, mesh, buf.placements)
+    lo = max(pos, offset[1])
+    hi = min(pos + new.shape[1], offset[1] + local.shape[1])
+    if lo < hi:
+        local[:, lo - offset[1]:hi - offset[1]] = new[:, lo - pos:hi - pos]
+    return from_local(local, mesh, buf.placements, buf.shape, buf.stride())
 
 
 def cache_insert(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
@@ -368,9 +475,7 @@ def decode_attention_ring(q: torch.Tensor, cache: dict, step: int,
     cur = step % length
     abs_pos = torch.where(slot <= cur, step - cur + slot,
                           step - cur + slot - length)
-    hkv = cache["k"].shape[2]
-    g = hq // hkv
-    qg = q.reshape(b, sq, hkv, g, dh)
+    qg = group_heads(q, cache["k"].shape[2])
     # JAX multiplies by the Python float in the scores' dtype (bf16)
     scale = torch.tensor(1.0 / math.sqrt(dh), dtype=q.dtype)
     scores = torch.einsum("bqhgd,bshd->bhgqs", qg, cache["k"]) * scale

@@ -81,10 +81,14 @@ def route(logits: torch.Tensor, cfg: MoEConfig, cap: int
 
 
 def expert_ffn(xe: torch.Tensor, wi, wg, wo) -> torch.Tensor:
-    """xe (B,E,cap,D); weights (E,D,F)/(E,F,D) -> (B,E,cap,D)."""
+    """xe (B,E,cap,D); weights (E,D,F)/(E,F,D) -> (B,E,cap,D).  The last
+    product's operands are made contiguous (no copy where they are): on
+    ``DTensor``s its einsum otherwise views a non-contiguous local shard
+    and fails (mixtral-8x7b's prefill_32k on the 16x16 pod)."""
     h = torch.einsum("becd,edf->becf", xe, cast(wi))
     g = torch.einsum("becd,edf->becf", xe, cast(wg))
-    return torch.einsum("becf,efd->becd", silu(g) * h, cast(wo))
+    return torch.einsum("becf,efd->becd", (silu(g) * h).contiguous(),
+                        cast(wo).contiguous())
 
 
 def moe_ffn(x: torch.Tensor, params: dict, cfg: MoEConfig) -> torch.Tensor:

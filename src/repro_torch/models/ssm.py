@@ -16,6 +16,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..kernels.ssd_chunk import segsum, ssd_chunk, ssd_chunk_plain  # noqa: F401
+from ..launch.sharding import gather_uneven
 from .common import cast
 
 
@@ -37,7 +38,10 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     """x (B,S,H,P); dt (B,S,H) post-softplus; a_log (H,) with
     A=-exp(a_log); b,c (B,S,G,N); d_skip (H,).  Returns (y (B,S,H,P),
     state (B,H,P,N)), both in x's dtype.  ``plain=True`` takes the
-    intra-chunk part from ``ssd_chunk_plain`` on any device (the oracle)."""
+    intra-chunk part from ``ssd_chunk_plain`` on any device (the oracle).
+    ``DTensor`` x and dt split unevenly over their heads are gathered
+    there first (``launch.sharding.gather_uneven``)."""
+    x, dt = gather_uneven(x, 2), gather_uneven(dt, 2)
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     chunk = min(cfg.chunk, s)

@@ -345,9 +345,9 @@ def _pad_seq(a: torch.Tensor, target: int) -> torch.Tensor:
 def _gqa_block(x, p, spec: BlockSpec, cfg: ArchConfig, mode: str, cache,
                pos, cache_len=None):
     h = _norm(x, p["ln"], cfg)
-    q = torch.einsum("bsd,dhe->bshe", h, cast(p["wq"]))
-    k = torch.einsum("bsd,dhe->bshe", h, cast(p["wk"]))
-    v = torch.einsum("bsd,dhe->bshe", h, cast(p["wv"]))
+    q = attn_lib.project_heads(h, cast(p["wq"]))
+    k = attn_lib.project_heads(h, cast(p["wk"]))
+    v = attn_lib.project_heads(h, cast(p["wv"]))
     if "bq" in p:
         q = q + cast(p["bq"])
         k = k + cast(p["bk"])
@@ -391,7 +391,7 @@ def _gqa_block(x, p, spec: BlockSpec, cfg: ArchConfig, mode: str, cache,
             else:                            # room for future decode steps
                 kk, vv = _pad_seq(k, lc), _pad_seq(v, lc)
             new_cache = {"attn": {"k": kk, "v": vv}}
-    return x + torch.einsum("bshe,hed->bsd", out, cast(p["wo"])), new_cache
+    return x + attn_lib.merge_heads(out, cast(p["wo"])), new_cache
 
 
 def _mla_block(x, p, cfg: ArchConfig, mode: str, cache, pos,
@@ -500,17 +500,17 @@ def _cross_block(x, p, cfg: ArchConfig, mode: str, cache, enc_out):
     """Attention to the encoder's output; its k/v are computed at
     prefill and read from the cache in decode."""
     h = _norm(x, p["ln"], cfg)
-    q = torch.einsum("bsd,dhe->bshe", h, cast(p["wq"]))
+    q = attn_lib.project_heads(h, cast(p["wq"]))
     if mode == "decode":
         k, v = cache["cross"]["k"], cache["cross"]["v"]
         new_cache = {"cross": cache["cross"]}
     else:
-        k = torch.einsum("bsd,dhe->bshe", enc_out, cast(p["wk"]))
-        v = torch.einsum("bsd,dhe->bshe", enc_out, cast(p["wv"]))
+        k = attn_lib.project_heads(enc_out, cast(p["wk"]))
+        v = attn_lib.project_heads(enc_out, cast(p["wv"]))
         new_cache = ({"cross": {"k": k, "v": v}} if mode == "prefill"
                      else None)
     out = attn_lib.attention(q, k, v, causal=False)
-    return x + torch.einsum("bshe,hed->bsd", out, cast(p["wo"])), new_cache
+    return x + attn_lib.merge_heads(out, cast(p["wo"])), new_cache
 
 
 def _ffn(x, p, kind: str, cfg: ArchConfig):

@@ -35,6 +35,15 @@ CASES = {
 }
 MICROBATCHES = 2
 SEED = 0
+#: the decode cases (test_torch_lm_mesh_decode.py), all on one (1, 4)
+#: ("data", "model") mesh: (seq, batch) of the decode cell.  mixtral's 2
+#: smoke kv heads do not divide "model" (its ring cache of the 16-token
+#: window views the heads); mamba2 decodes at batch 1, so nothing splits
+#: over "data" and the greedy token is an argmax over vocab-split logits
+DECODE_MESH = {"shape": (1, 4), "axes": ("data", "model")}
+DECODE_CASES = {"mixtral_8x7b": (64, 4), "mamba2_130m": (64, 1)}
+#: the train state restored onto the 2x2 mesh of the same four ranks
+RESTORE_ARCH = "stablelm_1_6b"
 
 
 def f32_compute():
@@ -174,7 +183,81 @@ def _restore_rank(rank: int, world: int, name: str, out: str) -> None:
     dist.destroy_process_group()
 
 
-WORKERS = {"step": _step_rank, "restore": _restore_rank}
+def decode_cell(arch: str, mesh, out: str):
+    """(fn, placed args) of ``arch``'s smoke decode cell on ``mesh``: the
+    params, f32 cache and token the test saved (``weights_<arch>``,
+    ``decode_<arch>.npz``), each rank sending only its shards to its
+    device (``sharding.place_host``)."""
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.checkpoint.store import _flatten
+    from repro_torch.configs import get_config
+    from repro_torch.launch import shapes
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import tree_unflatten
+    cfg = get_config(arch, smoke=True)
+    seq, batch = DECODE_CASES[arch]
+    spec = shapes.ShapeSpec("smoke_decode", seq, batch, "decode")
+    fn, args, ins, _ = shapes.build_cell(cfg, spec, mesh)
+    like = {"params": init_params(cfg, device="meta")}
+    params, _, _ = restore_checkpoint(Path(out).parent / f"weights_{arch}",
+                                      like, shardings={"params": ins[0]})
+    data = np.load(Path(out).parent / f"decode_{arch}.npz")
+    cache = tree_unflatten(args[1], [
+        sh.place_host(data[f"cache/{k}"], s)
+        for (k, _), (_, s) in zip(_flatten(args[1]), _flatten(ins[1]))])
+    token = sh.place_host(data["token"], ins[2])
+    return fn, (params["params"], cache, token, seq - 1)
+
+
+def _decode_rank(rank: int, world: int, name: str, out: str) -> None:
+    """The decode cases on the (1, 4) mesh, then the restore of the
+    test's train state onto a (2, 2) mesh of the same ranks, counting
+    what reaches ``sharding.place`` and ``DTensor.from_local``."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.steps import init_train_state
+    _init(rank, world, out)
+    f32_compute()
+    got = {}
+    mesh = M._device_mesh(DECODE_MESH["shape"], DECODE_MESH["axes"], "cpu")
+    for arch in DECODE_CASES:
+        fn, args = decode_cell(arch, mesh, out)
+        token, cache = fn(*args)
+        whole(f"{arch}/token", {"t": token}, got)
+        whole(f"{arch}/cache", cache, got)
+        local_shards(f"{arch}/cache", cache, got)
+    mesh22 = M._device_mesh((2, 2), ("data", "model"), "cpu")
+    cfg = get_config(RESTORE_ARCH, smoke=True)
+    like = init_train_state(cfg, None, "meta")
+    psh = sh.param_shardings(cfg, like["params"], mesh22)
+    placed, built = [], []
+    place, from_local = sh.place, DTensor.from_local
+    sh.place = lambda x, s: (placed.append(list(x.shape)), place(x, s))[1]
+    DTensor.from_local = staticmethod(lambda local, *a, **k: (
+        built.append([list(local.shape), list(k["shape"])]),
+        from_local(local, *a, **k))[1])
+    try:
+        state, step, _ = restore_checkpoint(
+            Path(out).parent / "restore_ckpt", like,
+            shardings={"params": psh, "opt": sh.opt_shardings(psh, mesh22)})
+    finally:
+        sh.place, DTensor.from_local = place, from_local
+    local_shards("restored", state, got)
+    whole("restored", state, got)
+    np.savez(f"{out}/rank{rank}.npz", **got)
+    meta = {"coord": mesh.get_coordinate(),
+            "coord22": mesh22.get_coordinate(), "step": step,
+            "placed": placed, "built": built}
+    Path(f"{out}/rank{rank}.json").write_text(json.dumps(meta))
+    dist.destroy_process_group()
+
+
+WORKERS = {"step": _step_rank, "restore": _restore_rank,
+           "decode": _decode_rank}
 
 
 def _entry(rank: int, world: int, kind: str, name: str, out: str) -> None:
@@ -186,9 +269,10 @@ def _entry(rank: int, world: int, kind: str, name: str, out: str) -> None:
 
 
 def start(kind: str, name: str, world: int, out):
-    """Start ``world`` gloo ranks of ``kind`` ("step" or "restore") for
-    the case ``name`` into ``out``; :func:`finish` waits for them, so
-    launches that do not depend on each other run at once."""
+    """Start ``world`` gloo ranks of ``kind`` ("step", "restore" or
+    "decode") for the case ``name`` into ``out``; :func:`finish` waits
+    for them, so launches that do not depend on each other run at
+    once."""
     import torch.multiprocessing as mp
     out = Path(out)
     out.mkdir(parents=True, exist_ok=True)

@@ -1,5 +1,6 @@
-"""The port stands alone: src/repro_torch and chip_smoke.py import
-neither jax nor the JAX package, importing the port loads neither, and
+"""The port stands alone: src/repro_torch, chip_smoke.py and the
+port's scripts (scripts/torch_*.py) import neither jax nor the JAX
+package, importing the port loads neither, and
 its entry points run on the card unless the caller asks for the CPU —
 without a card they raise instead of falling back."""
 import ast
@@ -26,7 +27,11 @@ def _imports(path):
 
 
 def test_no_jax_or_reference_imports():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    scripts = sorted((ROOT / "scripts").glob("torch_*.py"))
+    assert {f.name for f in scripts} >= {
+        "torch_perf_probe.py", "torch_perf_topops.py",
+        "torch_roofline_report.py"}
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + scripts
     assert len(files) > 10
     names = {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
     assert {"tune/__init__.py", "tune/measure.py", "tune/space.py",
@@ -37,7 +42,8 @@ def test_no_jax_or_reference_imports():
             "configs/deepseek_67b.py",
             "configs/mistral_large_123b.py", "checkpoint/store.py",
             "data/pipeline.py", "optim/compression.py",
-            "launch/mesh.py", "launch/sharding.py"} <= names
+            "launch/mesh.py", "launch/sharding.py", "launch/dryrun.py",
+            "launch/op_analysis.py", "launch/roofline.py"} <= names
     bad = [(f.relative_to(ROOT), name) for f in files
            for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "repro")]
@@ -63,7 +69,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.tune, repro_torch.core.simulator, "
             "repro_torch.checkpoint, repro_torch.data.pipeline, "
             "repro_torch.optim.compression, repro_torch.launch.mesh, "
-            "repro_torch.launch.sharding, repro_torch.launch.shapes\n"
+            "repro_torch.launch.sharding, repro_torch.launch.shapes, "
+            "repro_torch.launch.dryrun, repro_torch.launch.op_analysis, "
+            "repro_torch.launch.roofline\n"
             "from repro_torch.configs import CNN_IDS, get_config\n"
             "get_config('stablelm_1_6b'); get_config('whisper_base')\n"
             "[get_config(c) for c in CNN_IDS]\n"
