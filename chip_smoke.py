@@ -287,7 +287,17 @@ Phases, each of which raises on failure (exit code != 0):
     step is printed beside ``t_compute``, ``t_memory`` and the bound on
     H100 constants, and its ``roofline_fraction`` (useful FLOPs / the
     bf16 peak / the measured time) must not pass 1.05;
-23. a ``{"kernels": [...]}`` line: per kernel its launches, error, time
+23. the production mesh's repairs (no kernel; every launch count 0 over
+    the phase): on a (1, 1) CUDA ``DeviceMesh`` of a world-1 NCCL group,
+    a) deepseek-v2-lite-16b at full width cut to 2 units a stage, its
+    optimized train cell (seq 1024, batch 1) with the MoE blocks on
+    local experts (``moe._local_experts``), and b) the stablelm-1.6b
+    decode_32k cell cut to 2 units at batch 1 in f32, its f32 cache
+    placed split over "model" on its sequence (one shard), so each
+    attention block takes the split-keys path; each against the same
+    cell on plain tensors within 1e-6 relative, and the repaired path
+    counted as run;
+24. a ``{"kernels": [...]}`` line: per kernel its launches, error, time
     at its path's shapes, the plain version's time, the least time the
     card could take (its bound) and the library call's time (and, for
     the kernels phases 15 and 16 run, their launches there);
@@ -3834,6 +3844,149 @@ def roofline_phase(dev, card: str) -> None:
           f"{card}")
 
 
+#: phase 23, the production mesh's repairs on the card, each cell on
+#: DTensors over a (1, 1) ("data", "model") CUDA DeviceMesh of a world-1
+#: NCCL group against the same cell on plain tensors (the host mesh) at
+#: PROD_DTENSOR_RTOL: a) deepseek-v2-lite-16b at full width cut to
+#: CUT_UNITS units a stage, the optimized train cell at (seq, batch), one
+#: microbatch, its MoE blocks on local experts; b) the stablelm-1.6b
+#: decode_32k cell cut to CUT_UNITS units at (seq, batch), f32 compute
+#: and an f32 cache drawn from SEED whose k/v are placed split over
+#: "model" on their sequence (one rank holds the one shard), so every
+#: attention block takes the split-keys path; its next tokens, new cache
+#: and logits
+REPAIR_MOE = ("deepseek_v2_lite_16b", 1024, 1)
+REPAIR_DECODE = ("stablelm_1_6b", 32768, 1)
+
+
+@contextlib.contextmanager
+def world1_mesh():
+    """A (1, 1) ("data", "model") CUDA DeviceMesh of a world-1 NCCL group
+    on a free localhost port, destroyed on exit."""
+    import os
+    import socket
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as meshlib
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    os.environ["MASTER_ADDR"] = "localhost"
+    os.environ["MASTER_PORT"] = str(port)
+    dist.init_process_group("nccl", rank=0, world_size=1)
+    try:
+        yield meshlib._device_mesh((1, 1), ("data", "model"), "cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def _repair_gap(label: str, what: str, outs: dict, calls: int,
+                card: str) -> None:
+    """Print and gate one phase 23 cell: DTensor vs plain within
+    PROD_DTENSOR_RTOL, every output a DTensor, the repaired path run."""
+    (od, td), (op, tp) = outs["dtensor"], outs["plain"]
+    kinds = {type(x).__name__ for _, x in _leaves(od)}
+    worst, same = _tree_gap(od, op)
+    print(f"[repair] 23 {label}: {what} DTensor vs plain within "
+          f"{worst:.3e} relative (tol {PROD_DTENSOR_RTOL:g}; bitwise {same})"
+          f"; outputs {sorted(kinds)}; the repaired path ran {calls} times;"
+          f" {td:.4f} ms vs {tp:.4f} ms a first call on {card}")
+    if not (worst <= PROD_DTENSOR_RTOL and kinds == {"DTensor"} and calls):
+        raise AssertionError(f"{label}: the DTensor cell disagrees with "
+                             f"plain tensors or missed the repaired path")
+
+
+def repair_phase(dev, card: str) -> None:
+    """Phase 23: the MoE on local experts and the split-keys decode on a
+    (1, 1) CUDA DeviceMesh against plain tensors (REPAIR_MOE,
+    REPAIR_DECODE); raises on any failed check."""
+    import torch
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import shapes
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import attention, common, moe
+    from repro_torch.models import transformer as T
+    t_phase = time.perf_counter()
+    reset_all_counts()
+    calls = {"local_experts": 0, "split_keys": 0}
+    local_experts, reducer = moe._local_experts, attention.partial_reducer
+
+    def counted_experts(*a, **k):
+        calls["local_experts"] += 1
+        return local_experts(*a, **k)
+
+    def counted_reducer(mesh, dims):
+        calls["split_keys"] += bool(dims)
+        return reducer(mesh, dims)
+    moe._local_experts, attention.partial_reducer = (counted_experts,
+                                                     counted_reducer)
+    compute = common.COMPUTE_DTYPE
+    host = meshlib.make_host_mesh()
+    try:
+        with world1_mesh() as mesh:
+            arch, seq, batch = REPAIR_MOE
+            cfg = cut_depth(get_config(arch), CUT_UNITS)
+            spec = shapes.ShapeSpec("train_cut", seq, batch, "train")
+            outs = {}
+            for label, m in (("dtensor", mesh), ("plain", host)):
+                fn, args, ins, _ = shapes.build_cell(cfg, spec, m,
+                                                     microbatches=1)
+                real = shapes.materialize(cfg, spec, args, ins, seed=SEED)
+                out, t, _ = _timed(fn, real)
+                outs[label] = (out, t)
+                del real
+            _repair_gap(f"{arch} cut to {cfg.n_layers} blocks, optimized "
+                        f"train cell (seq {seq}, batch {batch})",
+                        "loss, grad norm, new params and moments", outs,
+                        calls["local_experts"], card)
+            del outs
+            torch.cuda.empty_cache()
+
+            common.COMPUTE_DTYPE = torch.float32
+            arch, seq, batch = REPAIR_DECODE
+            cfg = cut_depth(get_config(arch), CUT_UNITS)
+            spec = shapes.ShapeSpec("decode_cut", seq, batch, "decode")
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            full = T.tree_map(
+                lambda a: torch.randn(a.shape, generator=gen, device=dev),
+                T.init_cache(cfg, batch, seq, dtype=torch.float32,
+                             device="meta"))
+            split = [Replicate(), Shard(2)]          # (U, B, L, H, dh)
+            outs = {}
+            for label, m in (("dtensor", mesh), ("plain", host)):
+                fn, args, ins, _ = shapes.build_cell(cfg, spec, m)
+                params, _, token, pos = shapes.materialize(cfg, spec, args,
+                                                           ins, seed=SEED)
+                cache = full if m is host else T.tree_map(
+                    lambda a: sh.from_local(a, mesh, split, a.shape), full)
+                (tokens, new_cache), t, _ = _timed(
+                    fn, (params, cache, token, pos))
+                with sh.spmd(m), torch.no_grad():
+                    logits, _ = T.forward(params, cfg, mode="decode",
+                                          tokens=token, cache=cache, pos=pos)
+                outs[label] = ((tokens, new_cache, logits), t)
+                del params, cache
+            _repair_gap(f"{arch} cut to {cfg.n_layers} blocks, decode_32k "
+                        f"cell (seq {seq}, batch {batch}, f32), its cache "
+                        f"split over \"model\" on its sequence",
+                        "next tokens, new cache and logits", outs,
+                        calls["split_keys"], card)
+            del outs, full
+    finally:
+        common.COMPUTE_DTYPE = compute
+        moe._local_experts, attention.partial_reducer = (local_experts,
+                                                         reducer)
+        torch.cuda.empty_cache()
+    counts = launch_counts()
+    print(f"[repair] kernel launches over phase 23: {counts}")
+    if any(counts.values()):
+        raise AssertionError(f"the repaired mesh paths launched {counts}; "
+                             f"their path has no kernel")
+    print(f"[repair] phase 23 in {time.perf_counter() - t_phase:.3f} s on "
+          f"{card}")
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -4079,7 +4232,9 @@ def main() -> int:
     prod_phase(dev, card)
     # -- 22. the roofline against a measured step --------------------------
     roofline_phase(dev, card)
-    print(f"[main] phases 1-22 in {time.perf_counter() - t_main:.3f} s")
+    # -- 23. the repaired mesh paths: local experts, split-keys decode ---
+    repair_phase(dev, card)
+    print(f"[main] phases 1-23 in {time.perf_counter() - t_main:.3f} s")
     for row in rows:
         if row["name"] in served:
             row["serving_launches"] = served[row["name"]]

@@ -180,6 +180,17 @@ def place_host(full, sharding: NamedSharding):
     return from_local(part, mesh, pl, full.shape)
 
 
+def move(x, placements):
+    """``DTensor`` ``x`` redistributed to ``placements`` on its mesh, or
+    ``x`` itself where they are its own: a redistribute that moves
+    nothing still turns its gradient into its input's placements, so it
+    would all-reduce a partial gradient that should flow on (to the
+    FSDP gather's backward, a reduce-scatter)."""
+    if list(x.placements) == list(placements):
+        return x
+    return x.redistribute(x.device_mesh, placements)
+
+
 def gather_uneven(x, dim: int, size: Optional[int] = None):
     """A ``DTensor`` split on ``dim`` over a mesh dim whose size does not
     divide ``size`` (default: the dim's own), gathered over that mesh
@@ -206,6 +217,48 @@ def constrain(x, sharding: Optional[NamedSharding]):
     if sharding is None or not isinstance(x, DTensor):
         return x
     return x.redistribute(sharding.mesh, sharding.placements)
+
+
+def gather_fsdp(tree):
+    """The FSDP gather at use: each ``DTensor`` leaf of ``tree``
+    redistributed to ``Replicate()`` over the data axes ("pod", "data"),
+    its "model" split kept; plain tensors, and leaves split over no data
+    axis of more than one rank, as they are (a (1, 1) mesh changes
+    nothing).  The backward of the ``redistribute`` takes a gradient back
+    to the leaf's placements (a reduce-scatter over the data axes).
+
+    Against a weight split over "data" on d_model, DTensor's own
+    strategies keep the weight and move the activations: a rank would
+    multiply the whole microbatch against a d_model slice and all-reduce
+    the partial products.  GSPMD gathers the weight instead, which this
+    does: a product then runs as x (batch split) @ w (model split)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    def one(_, x):
+        if not isinstance(x, DTensor):
+            return x
+        names = axis_names(x.device_mesh)
+        return move(x, [Replicate() if names[i] in ("pod", "data") else p
+                        for i, p in enumerate(x.placements)])
+    return map_with_path(one, tree)
+
+
+def partial_reducer(mesh, dims):
+    """``reduce(t, op)``: a local tensor all-reduced (``op`` "max" or
+    "sum") over the mesh dims ``dims``, through a ``Partial`` placement
+    (differentiable where ``op`` is "sum"); None where ``dims`` is
+    empty.  What combines a softmax over shards of its row (the
+    split-keys decode, the vocab-split loss)."""
+    if not dims:
+        return None
+    from torch.distributed.tensor import Partial, Replicate
+
+    def reduce(t, op):
+        pl = [Partial(op) if i in dims else Replicate()
+              for i in range(mesh.ndim)]
+        return from_local(t.contiguous(), mesh, pl, t.shape).redistribute(
+            mesh, [Replicate()] * mesh.ndim).to_local()
+    return reduce
 
 
 class DictKey(NamedTuple):

@@ -13,6 +13,7 @@ steps; here they run eagerly.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
@@ -56,11 +57,58 @@ def loss_fn(params, cfg: ArchConfig, batch: Dict[str, Any],
     prefix = batch.get("prefix_embeds")
     if prefix is not None:
         logits = logits[:, prefix.shape[1]:]
-    logits = logits.float().masked_fill(
-        ~vocab_mask(cfg, logits.device), -1e30)
+    mask = vocab_mask(cfg, logits.device)
+    labels = batch["tokens"][:, 1:]
+    if _vocab_dims(logits):
+        return _sharded_nll(logits, labels, mask).mean()
+    logits = logits.float().masked_fill(~mask, -1e30)
     logp = torch.log_softmax(logits, -1)
-    labels = batch["tokens"][:, 1:].long()
+    labels = labels.long()
     return -torch.gather(logp, -1, labels[..., None])[..., 0].mean()
+
+
+def _vocab_dims(logits) -> list:
+    """The mesh dims that split ``DTensor`` logits over their vocabulary
+    (last) dim; none for a plain tensor."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(logits, DTensor):
+        return []
+    return [i for i, p in enumerate(logits.placements)
+            if p == Shard(logits.ndim - 1)]
+
+
+def _sharded_nll(logits, labels, mask: torch.Tensor):
+    """:func:`loss_fn`'s per-token negative log-likelihood of ``DTensor``
+    (B, S, V) logits split over the vocabulary, on local shards (a
+    vocab-parallel cross-entropy): each rank masks its slice of the
+    padded vocabulary, and the row max, the sum of exponentials and the
+    label's logit are all-reduced over the mesh dims that split the
+    vocab; the result keeps the logits' batch and sequence splits.
+    Gathering the logits would make each rank's backward multiply the
+    whole vocabulary (the head's gradient) as every other rank does.
+    The max has no gradient, as a log-softmax's shift has none."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from .sharding import from_local, local_part, move, partial_reducer
+    mesh = logits.device_mesh
+    last = logits.ndim - 1
+    pl = [Replicate() if isinstance(p, Partial) else p
+          for p in logits.placements]
+    rows = [p if isinstance(p, Shard) and p.dim < last else Replicate()
+            for p in pl]
+    logits = move(logits, pl)
+    _, off = local_part(logits.shape, mesh, pl)
+    local = logits.to_local().float()
+    n = local.shape[-1]
+    local = local.masked_fill(~mask[off[last]:off[last] + n], -1e30)
+    reduce = partial_reducer(mesh, _vocab_dims(logits))
+    m = reduce(local.amax(-1, keepdim=True).detach(), "max")
+    lse = m[..., 0] + torch.log(reduce(
+        torch.exp(local - m).sum(-1, keepdim=True), "sum"))[..., 0]
+    lab = move(labels, rows).to_local().long() - off[last]
+    inside = (lab >= 0) & (lab < n)
+    picked = local.gather(-1, lab.clamp(0, n - 1)[..., None])[..., 0]
+    picked = reduce(picked * inside, "sum")
+    return from_local(lse - picked, mesh, rows, labels.shape)
 
 
 @dataclass(frozen=True)
@@ -84,15 +132,28 @@ def init_train_state(cfg: ArchConfig, gen: Optional[torch.Generator],
 def loss_and_grads(params, cfg: ArchConfig, batch: Dict[str, Any],
                    act_sharding=None, *, remat: bool = True):
     """(loss, gradients in ``params``' structure) of :func:`loss_fn`; a
-    leaf the loss does not reach gets zeros, as ``jax.grad`` gives."""
+    leaf the loss does not reach gets zeros, as ``jax.grad`` gives.  A
+    ``DTensor`` gradient is placed as its parameter (and so as the Adam
+    moments, ``launch.sharding.opt_shardings``): a replicated weight's
+    gradient comes out of the backward as a partial sum over the ranks
+    that split the batch, which is reduced here."""
     leaves = tree_leaves(params)
     live = [p.detach().requires_grad_() for p in leaves]
     loss = loss_fn(tree_unflatten(params, live), cfg, batch, act_sharding,
                    remat=remat)
     grads = torch.autograd.grad(loss, live, allow_unused=True)
     return loss.detach(), tree_unflatten(params, [
-        torch.zeros_like(p) if g is None else g
+        torch.zeros_like(p) if g is None else _placed_as(g, p)
         for p, g in zip(leaves, grads)])
+
+
+def _placed_as(g, p):
+    """``g`` redistributed to ``p``'s placements where both are
+    ``DTensor``s that differ; else as it is."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(g, DTensor) or g.placements == p.placements:
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
 
 
 def make_train_step(cfg: ArchConfig, tc: TrainConfig, act_sharding=None, *,
@@ -139,27 +200,57 @@ def make_train_step(cfg: ArchConfig, tc: TrainConfig, act_sharding=None, *,
     return train_step
 
 
-def _whole_vocab(logits: torch.Tensor) -> torch.Tensor:
-    """``DTensor`` logits gathered over the vocabulary (last) dim and
-    any partial sum, the batch split kept: the argmax is then local to a
-    shard.  DTensor's own argmax over a split dim gathers each shard's
-    best with a view that fails where the batch does not split over
-    "data" (batch 1: every long_500k cell).  Plain tensors as they are."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    if not isinstance(logits, DTensor):
-        return logits
-    last = logits.ndim - 1
-    pl = [Replicate() if isinstance(p, Partial) or (
-        isinstance(p, Shard) and p.dim == last) else p
-        for p in logits.placements]
-    return logits.redistribute(logits.device_mesh, pl)
-
-
 def _greedy(cfg: ArchConfig, logits: torch.Tensor) -> torch.Tensor:
     """Argmax over the real (unpadded) vocabulary of (B, V) logits: the
-    first index of the maximum, as ``jnp.argmax`` takes it."""
+    first index of the maximum, as ``jnp.argmax`` takes it.  ``DTensor``
+    logits take :func:`_sharded_argmax`."""
+    from torch.distributed.tensor import DTensor
     mask = vocab_mask(cfg, logits.device)
-    return _whole_vocab(logits).float().masked_fill(~mask, -1e30).argmax(-1)
+    if isinstance(logits, DTensor):
+        return _sharded_argmax(logits, mask)
+    return logits.float().masked_fill(~mask, -1e30).argmax(-1)
+
+
+def _sharded_argmax(logits, mask: torch.Tensor):
+    """:func:`_greedy` of ``DTensor`` logits, the batch split kept.  A
+    partial sum is reduced onto a split of the batch where the batch
+    divides (a reduce-scatter: a decode's logits come out whole in the
+    batch and partial over "data"), else whole.  Each rank then takes
+    the first maximum of its vocabulary slice, and the (value, index)
+    pairs are gathered over the mesh dims that split the vocabulary, in
+    its order: the first shard holding the maximum gives the first
+    index, as over the whole row.  So no rank gathers the logits; and
+    DTensor's own argmax over a split dim views each shard's best in a
+    way that fails where the batch does not split (batch 1: every
+    long_500k cell)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from .sharding import from_local, local_part, move
+    mesh = logits.device_mesh
+    sizes = mesh.shape
+    split = math.prod(n for n, p in zip(sizes, logits.placements)
+                      if p == Shard(0))
+    pl = []
+    for n, p in zip(sizes, logits.placements):
+        if isinstance(p, Partial) and logits.shape[0] % (split * n) == 0:
+            split *= n
+            pl.append(Shard(0))
+        else:
+            pl.append(Replicate() if isinstance(p, Partial) else p)
+    logits = move(logits, pl)
+    _, off = local_part(logits.shape, mesh, pl)
+    local = logits.to_local().float()
+    n = local.shape[1]
+    local = local.masked_fill(~mask[off[1]:off[1] + n], -1e30)
+    idx = local.argmax(-1, keepdim=True)
+    val = local.gather(-1, idx)
+    rows = [p if p == Shard(0) else Replicate() for p in pl]
+    shards = [Shard(1) if p == Shard(1) else r for p, r in zip(pl, rows)]
+    k = logits.shape[1] // n
+    val, idx = [from_local(t, mesh, shards, (logits.shape[0], k))
+                .redistribute(mesh, rows).to_local()
+                for t in (val, idx + off[1])]
+    best = idx.gather(-1, val.argmax(-1, keepdim=True))[:, 0]
+    return from_local(best, mesh, rows, logits.shape[:1])
 
 
 def make_prefill_step(cfg: ArchConfig, cache_len: Optional[int] = None,

@@ -42,7 +42,8 @@ import torch.utils.checkpoint
 
 from ..launch.mesh import axis_sizes
 from ..launch.sharding import (NamedSharding, P, constrain, from_local,
-                               gather_uneven, local_part)
+                               gather_uneven, local_part, move,
+                               partial_reducer)
 from .common import in_context
 
 NEG_INF = -1e30
@@ -144,35 +145,73 @@ def _local_attend(q, k, v, pos_q, pos_k, **kw):
     any other (head_dim, a partial sum) by a gather; the output is
     sharded as q.  DTensor's own propagation through the block's 5-d
     einsums searches strategies exponentially in the mesh's dims (a
-    (2, 1, 2) mesh took minutes a step on the CPU)."""
-    from torch.distributed.tensor import Partial, Replicate, Shard
+    (2, 1, 2) mesh took minutes a step on the CPU).
+
+    k/v that arrive split over their sequence (a decode cache's "model"
+    split, ``launch.sharding.cache_spec``, self- and cross-attention's)
+    keep that split: q is whole on those mesh dims, each rank scores
+    its shard of the keys, and the row max, the row sum and the output
+    are all-reduced over them (``launch.sharding.partial_reducer``).
+    Gathering the cache would move all of it every block and token."""
     mesh = q.device_mesh
-    # per mesh dim: q's placement, k/v's, and the placement of k/v's
-    # local gradient: where q's rows (or query heads) are split and k/v
-    # whole, each shard's gradient of k/v is a part of the sum
-    qp, kvp, kv_grad = [], [], []
-    for p in q.placements:
-        if isinstance(p, Shard) and p.dim in (0, 2):
-            qp.append(p)
-            kvp.append(p)
-            kv_grad.append(p)
-        elif isinstance(p, Shard) and p.dim in (1, 3):
-            qp.append(p)
-            kvp.append(Replicate())
-            kv_grad.append(Partial())
-        else:
-            qp.append(Replicate())
-            kvp.append(Replicate())
-            kv_grad.append(Replicate())
-    q = q.redistribute(mesh, qp)
-    k, v = k.redistribute(mesh, kvp), v.redistribute(mesh, kvp)
-    ql = q.to_local()
+    qp, q_grad, kvp, kv_grad, key_dims = _attend_plan(q, k, v)
+    q, k, v = move(q, qp), move(k, kvp), move(v, kvp)
+    ql = q.to_local(grad_placements=q_grad)
+    kl = k.to_local(grad_placements=kv_grad)
     _, offset = local_part(q.shape, mesh, qp)
     rows = pos_q[offset[1]:offset[1] + ql.shape[1]]
-    out = _attend_block(ql, k.to_local(grad_placements=kv_grad),
-                        v.to_local(grad_placements=kv_grad), rows, pos_k,
+    _, k_off = local_part(k.shape, mesh, kvp)
+    keys = pos_k[k_off[1]:k_off[1] + kl.shape[1]]
+    out = _attend_block(ql, kl, v.to_local(grad_placements=kv_grad), rows,
+                        keys, reduce=partial_reducer(mesh, key_dims),
                         **kw).contiguous()     # the global stride below
     return from_local(out, mesh, qp, tuple(q.shape[:4]) + (v.shape[-1],))
+
+
+def _attend_plan(q, k, v):
+    """(q's placements, q's local gradient's, k/v's, k/v's local
+    gradients', the mesh dims that split the keys) of
+    :func:`_local_attend` for ``DTensor`` q (B,Sq,Hkv,G,Dh) and k/v
+    (B,Sk,Hkv,Dh), per mesh dim: k/v split on their sequence (a decode
+    cache's) keep it and q is whole there, its gradient a part of the
+    sum; k/v split on the batch give q that split (q moves, not the
+    cache); else q keeps a split of its batch, kv heads, rows or query
+    heads, k/v alike on the batch and kv heads and whole on the rest
+    (where q's rows or query heads are split, each shard's gradient of
+    k/v is a part of the sum), and any other split is gathered."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    plan, key_dims = [], []
+    rep, part = Replicate(), Partial()
+    for i, p in enumerate(q.placements):
+        kv = k.placements[i] if k.placements[i] == v.placements[i] else None
+        if kv == Shard(1):
+            plan.append((rep, part, kv, kv))
+            key_dims.append(i)
+        elif q.device_mesh.shape[i] > 1 and kv == Shard(0):
+            plan.append((kv, kv, kv, kv))
+        elif isinstance(p, Shard) and p.dim in (0, 2):
+            plan.append((p, p, p, p))
+        elif isinstance(p, Shard) and p.dim in (1, 3):
+            plan.append((p, p, rep, part))
+        else:
+            plan.append((rep,) * 4)
+    return tuple(list(c) for c in zip(*plan)) + (key_dims,)
+
+
+def gather_for_split_keys(kv, *ws):
+    """Weights ``ws`` gathered whole where ``kv`` is split over its
+    sequence (dim 1); anything not a ``DTensor``, or any ``kv`` split
+    otherwise, as it is.  MLA's decode makes its keys and values from the
+    compressed cache by products with weights split over "model" on
+    their heads and over "data" on the latent: whole, they let the keys
+    keep the cache's splits (the split-keys decode,
+    :func:`_local_attend`), where DTensor would gather the cache over
+    one or the other."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(kv, DTensor) or Shard(1) not in kv.placements:
+        return ws
+    return tuple([move(w, [Replicate()] * w.device_mesh.ndim)
+                  if isinstance(w, DTensor) else w for w in ws])
 
 
 def _head_dim_split(w, dim: int) -> bool:
@@ -216,37 +255,53 @@ def _local_product(eq: str, x, w, w_split: tuple, x_dim: dict, out_split):
             wp.append(Replicate())
             wg.append(Replicate())
             op.append(Replicate())
-    x, w = x.redistribute(mesh, xp), w.redistribute(mesh, wp)
+    x, w = move(x, xp), move(w, wp)
     out = torch.einsum(eq, x.to_local(grad_placements=xg),
                        w.to_local(grad_placements=wg))
-    shape = torch.einsum(eq, torch.empty(x.shape, device="meta"),
-                         torch.empty(w.shape, device="meta")).shape
-    return from_local(out, mesh, op, shape)
+    ins, out_dims = eq.split("->")
+    size = dict(zip(ins.replace(",", ""), tuple(x.shape) + tuple(w.shape)))
+    return from_local(out, mesh, op, tuple(size[c] for c in out_dims))
+
+
+def _local_heads_product(w, d_model: int, head_dim: int) -> bool:
+    """Whether a head projection runs on local shards
+    (:func:`_local_product`): ``w`` a ``DTensor`` split on its head_dim
+    (the fallback of ``launch.sharding.param_spec`` where the heads do
+    not divide "model"), or split on nothing but its heads (the weights
+    gathered over the data axes at use).  On the second DTensor's own
+    einsum keeps the heads split forward but gathers the weight's
+    gradient and the input's in the backward, each rank multiplying
+    every head.  A weight still split on d_model (a decode, which
+    gathers no weights) takes DTensor's einsum, which moves the small
+    activations instead."""
+    from torch.distributed.tensor import DTensor, Shard
+    return isinstance(w, DTensor) and (_head_dim_split(w, head_dim) or (
+        Shard(d_model) not in w.placements))
 
 
 def project_heads(x, w):
-    """The q/k/v projection ``einsum("bsd,dhe->bshe", x, w)``.  Where
-    ``w`` takes the head_dim fallback (a ``DTensor`` split on its last
-    dim), on local shards (:func:`_local_product`): DTensor's own einsum
-    flattens (H, dh) and cannot view a split head_dim back.  The output
-    keeps a split of the heads and the batch and is gathered over
-    head_dim, along which rotary, the cache write and attention act
-    (attention would gather it: :func:`_local_attend`)."""
-    if not _head_dim_split(w, 2):
+    """The q/k/v projection ``einsum("bsd,dhe->bshe", x, w)``, on local
+    shards where :func:`_local_heads_product` says: there DTensor's own
+    einsum flattens (H, dh) and cannot view a split head_dim back, or
+    multiplies every head in the backward.  The output keeps a split of
+    the heads and the batch and is gathered over head_dim, along which
+    rotary, the cache write and attention act (attention would gather
+    it: :func:`_local_attend`)."""
+    if not _local_heads_product(w, 0, 2):
         return torch.einsum("bsd,dhe->bshe", x, w)
     from torch.distributed.tensor import Replicate, Shard
     out = _local_product("bsd,dhe->bshe", x, w, (1, 2), {1: None, 2: None},
                          lambda d: Shard(d + 1))
-    return out.redistribute(out.device_mesh, [
-        Replicate() if p == Shard(3) else p for p in out.placements])
+    return move(out, [Replicate() if p == Shard(3) else p
+                      for p in out.placements])
 
 
 def merge_heads(out, wo):
-    """The output projection ``einsum("bshe,hed->bsd", out, wo)``.  Where
-    ``wo`` takes the head_dim fallback (split on its dim 1), on local
-    shards: each rank sums its head or head_dim slice, so the result is a
-    ``Partial`` sum over that mesh dim."""
-    if not _head_dim_split(wo, 1):
+    """The output projection ``einsum("bshe,hed->bsd", out, wo)``, on
+    local shards where :func:`_local_heads_product` says: each rank sums
+    its head or head_dim slice, so the result is a ``Partial`` sum over
+    that mesh dim."""
+    if not _local_heads_product(wo, 2, 1):
         return torch.einsum("bshe,hed->bsd", out, wo)
     from torch.distributed.tensor import Partial
     return _local_product("bshe,hed->bsd", out, wo, (0, 1), {0: 2, 1: 3},
@@ -283,7 +338,8 @@ def _rounded(scale: float, dtype: torch.dtype) -> float:
 def _attend_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   pos_q: torch.Tensor, pos_k: torch.Tensor, *,
                   causal: bool, window: Optional[int],
-                  kv_len: Optional[int], scale: float) -> torch.Tensor:
+                  kv_len: Optional[int], scale: float,
+                  reduce=None) -> torch.Tensor:
     """One q block against one kv block.  q (B,Bq,Hkv,G,Dh);
     k/v (B,Sk,Hkv,Dh); returns (B,Bq,Hkv,G,Dv) in v's dtype.
 
@@ -296,7 +352,13 @@ def _attend_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     them) and the row sum are f32; the mask value, the exponentials and
     the division are in the scores' type; the weights are cast to v's
     dtype before the product with v.  No f32 copy of bf16 scores is
-    made."""
+    made.
+
+    ``reduce`` (``launch.sharding.partial_reducer``), where given,
+    combines shards of the keys: the row max and the row sum are
+    all-reduced before they are used, so each weight is the one the
+    whole row gives; the output is summed in f32 over the shards and
+    cast to v's dtype once."""
     sdt = _SCORES_DTYPE.get() or torch.float32
     if q.dtype == k.dtype == sdt:
         scores = torch.einsum("bqhgd,bshd->bhgqs", q, k)
@@ -314,10 +376,17 @@ def _attend_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask &= (pos_k < kv_len)[None, :]
     scores = scores.masked_fill(~mask, NEG_INF)
     m = scores.amax(-1, keepdim=True).float().detach()
+    if reduce is not None:
+        m = reduce(m, "max")
     e = torch.exp(scores - m.to(sdt))
     denom = e.sum(-1, keepdim=True, dtype=torch.float32)
+    if reduce is not None:
+        denom = reduce(denom, "sum")
     w = (e / denom.to(sdt)).to(v.dtype)
-    return torch.einsum("bhgqs,bshd->bqhgd", w, v)
+    if reduce is None:
+        return torch.einsum("bhgqs,bshd->bqhgd", w, v)
+    return reduce(torch.einsum("bhgqs,bshd->bqhgd", w.float(), v.float()),
+                  "sum").to(v.dtype)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -335,6 +404,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, sq, hq, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     dv = v.shape[-1]
+    dim = _query_head_split(q, k, v)
+    if dim is not None:
+        return _local_heads(q, k, v, dim, causal=causal, window=window,
+                            q_offset=q_offset, kv_len=kv_len,
+                            q_block=q_block)
     scale = 1.0 / math.sqrt(dh)
     qg = group_heads(q, hkv)
 
@@ -395,6 +469,68 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         positions(kv_start, kv_slice)))
     out = torch.cat(outs, 1)
     return out.reshape(b, sq, hq, dv)[:, :sq_orig]
+
+
+def _query_head_split(q, k, v):
+    """The mesh dim over which a ``DTensor`` q (B, Sq, Hq, Dh) splits its
+    query heads where that dim does not divide the kv heads (8 on a
+    16-way "model" axis) but each rank's heads fall within one kv head's
+    group or hold whole groups; None if there is none (or more than one,
+    or k/v split their sequence there: a decode keeps the cache's split).
+    """
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(q, DTensor):
+        return None
+    hq, hkv = q.shape[2], k.shape[2]
+    g = hq // hkv
+    dims = [i for i, p in enumerate(q.placements) if p == Shard(2)]
+    if len(dims) != 1:
+        return None
+    i = dims[0]
+    n = q.device_mesh.shape[i]
+    per = hq // n
+    if (hkv % n == 0 or hq % n or (g % per and per % g)
+            or Shard(1) in (k.placements[i], v.placements[i])):
+        return None
+    return i
+
+
+def _local_heads(q, k, v, dim: int, **kw):
+    """:func:`attention` of a ``DTensor`` q split over mesh dim ``dim`` on
+    its query heads where that dim does not divide the kv heads
+    (:func:`_query_head_split`): each rank attends with its own query
+    heads to the one or more kv heads they read, on local tensors (the
+    plain :func:`attention`); k/v are whole over ``dim`` and each
+    rank's gradient of them a part of the sum.  Elsewhere q and k/v
+    keep a split of the batch they share and are whole otherwise.
+    DTensor cannot view such a head split as (kv heads, group), so
+    every rank would otherwise attend with all heads."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = q.device_mesh
+    qp, kvp, kvg = [], [], []
+    for i, p in enumerate(q.placements):
+        kv = k.placements[i] if k.placements[i] == v.placements[i] else None
+        if i == dim:
+            qp.append(p)
+            kvp.append(Replicate())
+            kvg.append(Partial())
+        elif p == kv == Shard(0):
+            qp.append(p)
+            kvp.append(p)
+            kvg.append(p)
+        else:
+            qp.append(Replicate())
+            kvp.append(Replicate())
+            kvg.append(Replicate())
+    q, k, v = move(q, qp), move(k, kvp), move(v, kvp)
+    ql = q.to_local()
+    _, off = local_part(q.shape, mesh, qp)
+    g = q.shape[2] // k.shape[2]
+    h0, h1 = off[2] // g, (off[2] + ql.shape[2] - 1) // g + 1
+    out = attention(ql, k.to_local(grad_placements=kvg)[:, :, h0:h1],
+                    v.to_local(grad_placements=kvg)[:, :, h0:h1], **kw)
+    return from_local(out.contiguous(), mesh, qp,
+                      tuple(q.shape[:3]) + (v.shape[-1],))
 
 
 # ---------------------------------------------------------------------------
@@ -468,20 +604,49 @@ def decode_attention_ring(q: torch.Tensor, cache: dict, step: int,
 
     Not :func:`_attend_block`'s numerics, as in the JAX package: the
     scores are formed in the inputs' dtype and scaled there, only then
-    taken to f32 for a plain softmax."""
+    taken to f32 for a plain softmax.  ``DTensor`` operands run on local
+    shards (:func:`_attend_plan`): a ring split over its slots stays
+    split, and the softmax is combined over the shards."""
+    from torch.distributed.tensor import DTensor
     b, sq, hq, dh = q.shape
-    length = cache["k"].shape[1]
+    k, v = cache["k"], cache["v"]
+    length = k.shape[1]
     slot = torch.arange(length, device=q.device)
     cur = step % length
     abs_pos = torch.where(slot <= cur, step - cur + slot,
                           step - cur + slot - length)
-    qg = group_heads(q, cache["k"].shape[2])
-    # JAX multiplies by the Python float in the scores' dtype (bf16)
-    scale = torch.tensor(1.0 / math.sqrt(dh), dtype=q.dtype)
-    scores = torch.einsum("bqhgd,bshd->bhgqs", qg, cache["k"]) * scale
-    scores = scores.float()
     valid = (abs_pos >= 0) & (abs_pos <= step) & (abs_pos > step - window)
-    scores = scores.masked_fill(~valid, NEG_INF)
-    w = torch.softmax(scores, -1).to(cache["v"].dtype)
-    out = torch.einsum("bhgqs,bshd->bqhgd", w, cache["v"])
+    qg = group_heads(q, k.shape[2])
+    if isinstance(qg, DTensor):
+        # on local shards, a split ring (the cache's "model" split) kept
+        mesh = qg.device_mesh
+        qp, _, kvp, _, key_dims = _attend_plan(qg, k, v)
+        qg, k, v = move(qg, qp), move(k, kvp), move(v, kvp)
+        kl = k.to_local()
+        _, k_off = local_part(k.shape, mesh, kvp)
+        out = _ring_block(qg.to_local(), kl, v.to_local(),
+                          valid[k_off[1]:k_off[1] + kl.shape[1]],
+                          partial_reducer(mesh, key_dims)).contiguous()
+        out = from_local(out, mesh, qp, tuple(qg.shape[:4]) + (dh,))
+    else:
+        out = _ring_block(qg, k, v, valid)
     return out.reshape(b, sq, hq, dh)
+
+
+def _ring_block(qg, k, v, valid, reduce=None):
+    """:func:`decode_attention_ring`'s scores and softmax of grouped q
+    against ring slots ``valid`` marks.  ``reduce`` combines shards of
+    the ring as :func:`_attend_block` combines them: the row max and sum
+    all-reduced, the output summed in f32."""
+    # JAX multiplies by the Python float in the scores' dtype (bf16)
+    scale = torch.tensor(1.0 / math.sqrt(qg.shape[-1]), dtype=qg.dtype)
+    scores = torch.einsum("bqhgd,bshd->bhgqs", qg, k) * scale
+    scores = scores.float().masked_fill(~valid, NEG_INF)
+    if reduce is None:
+        w = torch.softmax(scores, -1).to(v.dtype)
+        return torch.einsum("bhgqs,bshd->bqhgd", w, v)
+    m = reduce(scores.amax(-1, keepdim=True), "max")
+    e = torch.exp(scores - m)
+    w = (e / reduce(e.sum(-1, keepdim=True), "sum")).to(v.dtype)
+    return reduce(torch.einsum("bhgqs,bshd->bqhgd", w.float(), v.float()),
+                  "sum").to(v.dtype)

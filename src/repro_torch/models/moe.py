@@ -27,7 +27,8 @@ from typing import Tuple
 import torch
 
 from ..launch.mesh import axis_sizes
-from ..launch.sharding import NamedSharding, P, constrain
+from ..launch.sharding import (NamedSharding, P, from_local,
+                               local_part, move)
 from .attention import policy_mesh
 from .common import cast, silu
 
@@ -91,6 +92,72 @@ def expert_ffn(xe: torch.Tensor, wi, wg, wo) -> torch.Tensor:
                         cast(wo).contiguous())
 
 
+def _experts(x, router, wi, wg, wo, cfg: MoEConfig, chunk: int,
+             cap: int, e0: int = 0) -> torch.Tensor:
+    """The routed experts of (B,S,D) x, chunk by chunk: route each chunk
+    over all the router's experts, run the experts ``e0 .. e0 + E`` of
+    ``wi``/``wg``/``wo`` (all of them by default) and combine.  With a
+    slice of the experts or of d_ff the result is that slice's part of
+    the sum."""
+    ys = []
+    n_e = wi.shape[0]
+    for c in range(x.shape[1] // chunk):
+        xc = x[:, c * chunk:(c + 1) * chunk]
+        disp, comb = route(xc @ router, cfg, cap)
+        if n_e != disp.shape[2]:
+            disp, comb = disp[:, :, e0:e0 + n_e], comb[:, :, e0:e0 + n_e]
+        xe = torch.einsum("btec,btd->becd", disp.to(xc.dtype), xc)
+        ye = expert_ffn(xe, wi, wg, wo)
+        ys.append(torch.einsum("btec,becd->btd", comb.to(xc.dtype), ye))
+    return torch.cat(ys, 1) if len(ys) > 1 else ys[0]
+
+
+def _local_experts(x, router, wi, wg, wo, cfg: MoEConfig, chunk: int,
+                   cap: int):
+    """:func:`_experts` on ``DTensor`` operands, run on each shard's
+    local tensors (the ``attention._local_attend`` treatment).  Per mesh
+    dim: where x is split on its batch it keeps that split and the
+    weights are gathered (routing, whose ranks are a cumsum along each
+    batch row, sees whole rows: exact); elsewhere x is whole, and the
+    experts keep a split of the experts (EP) or of d_ff where the dim
+    divides it, each rank routing every token, running its slice and
+    adding a ``Partial`` part of the output; any other split is
+    gathered.  The capacity is never split.  DTensor's own einsums split
+    the capacity unevenly over a "model" axis that does not divide it
+    (60 slots on 16 ranks) and then cannot flatten it."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    n_e, f = wi.shape[0], wi.shape[2]
+    rep, part = Replicate(), Partial()
+    # per mesh dim: the placements of x, wi/wg, wo, the router and the
+    # output, then the gradients' of x, wi/wg, wo and the router (a
+    # whole operand against a split partner gets a partial gradient)
+    plan = []
+    for i, size in enumerate(mesh.shape):
+        px, pw, po = x.placements[i], wi.placements[i], wo.placements[i]
+        if size > 1 and isinstance(px, Shard) and px.dim == 0:
+            plan.append((px, rep, rep, px, px, part, part, part))
+        elif size > 1 and pw == po == Shard(0) and n_e % size == 0:
+            plan.append((rep, pw, po, part, part, pw, po, part))
+        elif size > 1 and pw == Shard(2) and po == Shard(1) and \
+                f % size == 0:
+            plan.append((rep, pw, po, part, part, pw, po, part))
+        else:
+            plan.append((rep,) * 8)
+    p_x, p_w, p_wo, p_out, g_x, g_w, g_wo, g_r = (list(c)
+                                                  for c in zip(*plan))
+    x, router = move(x, p_x), move(router, [rep] * mesh.ndim)
+    wi, wg, wo = move(wi, p_w), move(wg, p_w), move(wo, p_wo)
+    _, offset = local_part(wi.shape, mesh, p_w)
+    y = _experts(x.to_local(grad_placements=g_x),
+                 router.to_local(grad_placements=g_r),
+                 wi.to_local(grad_placements=g_w),
+                 wg.to_local(grad_placements=g_w),
+                 wo.to_local(grad_placements=g_wo), cfg, chunk, cap,
+                 e0=offset[0])
+    return from_local(y.contiguous(), mesh, p_out, x.shape)
+
+
 def moe_ffn(x: torch.Tensor, params: dict, cfg: MoEConfig) -> torch.Tensor:
     """x (B,S,D) -> (B,S,D).  params: router (D,E), wi/wg (E,D,F),
     wo (E,F,D), optional shared_{wi,wg,wo} ((D,Fs)/(Fs,D))."""
@@ -107,19 +174,25 @@ def moe_ffn(x: torch.Tensor, params: dict, cfg: MoEConfig) -> torch.Tensor:
                else None)
 
         def gather(w, *spec):
-            return constrain(w, NamedSharding(mesh, P(*spec)))
+            # after the FSDP gather at use only the "model" split moves
+            from torch.distributed.tensor import DTensor
+            if not isinstance(w, DTensor):
+                return w
+            return move(w, NamedSharding(mesh, P(*spec)).placements)
         wi, wg = gather(wi, None, None, mdl), gather(wg, None, None, mdl)
         wo = gather(wo, None, mdl, None)
         router = gather(router, None, None)
 
-    ys = []
-    for c in range(s // chunk):
-        xc = x[:, c * chunk:(c + 1) * chunk]
-        disp, comb = route(xc @ router, cfg, cap)
-        xe = torch.einsum("btec,btd->becd", disp.to(xc.dtype), xc)
-        ye = expert_ffn(xe, wi, wg, wo)
-        ys.append(torch.einsum("btec,becd->btd", comb.to(xc.dtype), ye))
-    y = torch.cat(ys, 1) if len(ys) > 1 else ys[0]
+    from torch.distributed.tensor import DTensor, Shard
+    if isinstance(x, DTensor) and Shard(1) not in wi.placements and \
+            Shard(2) not in wo.placements:
+        y = _local_experts(x, router, wi, wg, wo, cfg, chunk, cap)
+    else:
+        # plain tensors; or a decode's DTensors, whose weights keep their
+        # split over "data" on d_model (no FSDP gather): DTensor's own
+        # einsums move the one-token activations, where the local
+        # experts would gather every expert's weights each token
+        y = _experts(x, router, wi, wg, wo, cfg, chunk, cap)
 
     if cfg.n_shared:
         h = x @ cast(params["shared_wi"])

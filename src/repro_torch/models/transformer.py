@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from ..launch.sharding import constrain
+from ..launch.sharding import constrain, gather_fsdp
 from . import attention as attn_lib
 from .common import (apply_rotary, cast, dense_init, embed_init, gelu,
                      in_context, layer_norm, rms_norm, rotary_cos_sin, silu,
@@ -429,8 +429,11 @@ def _mla_block(x, p, cfg: ArchConfig, mode: str, cache, pos,
         new_cache = {"attn": {"ckv": _pad_seq(ckv, horizon),
                               "kr": _pad_seq(kr, horizon)}}
 
-    k_nope = torch.einsum("bsl,lhe->bshe", ckv, cast(p["w_uk"]))
-    val = torch.einsum("bsl,lhe->bshe", ckv, cast(p["w_uv"]))
+    w_uk, w_uv = cast(p["w_uk"]), cast(p["w_uv"])
+    if mode == "decode":
+        w_uk, w_uv = attn_lib.gather_for_split_keys(ckv, w_uk, w_uv)
+    k_nope = torch.einsum("bsl,lhe->bshe", ckv, w_uk)
+    val = torch.einsum("bsl,lhe->bshe", ckv, w_uv)
     k = torch.cat([k_nope, kr[:, :, None, :].expand(
         k_nope.shape[:3] + (dr,))], -1)
     out = attn_lib.attention(torch.cat([qn, qr], -1), k, val, causal=True,
@@ -524,10 +527,17 @@ def _ffn(x, p, kind: str, cfg: ArchConfig):
 
 def apply_block(x, p, spec: BlockSpec, cfg: ArchConfig, *, mode: str,
                 cache=None, pos=None, enc_out=None, cache_len=None,
-                plain: bool = False):
+                plain: bool = False, act_sharding=None):
     """One block; ``plain=True`` runs the kernels' plain versions (the
     oracle; only the ssd mixer has a kernel).  Returns (x, new cache or
-    None)."""
+    None).
+
+    ``act_sharding`` re-places the residual stream after the mixer and
+    after cross-attention, before the next norm reads it: their output
+    projections leave a ``DTensor`` x a ``Partial`` sum over "model",
+    and DTensor would carry that sum through the norm and gather the
+    ffn's weights over "model" instead of reducing x once (each rank
+    would then multiply the whole d_ff)."""
     _check_spec(spec)
     if spec.mixer == "gqa":
         x, nc = _gqa_block(x, p["attn"], spec, cfg, mode, cache, pos,
@@ -538,9 +548,11 @@ def apply_block(x, p, spec: BlockSpec, cfg: ArchConfig, *, mode: str,
         x, nc = _rec_block(x, p["rec"], cfg, mode, cache)
     else:
         x, nc = _ssd_block(x, p["ssd"], cfg, mode, cache, pos, plain)
+    x = constrain(x, act_sharding)
     new_cache: Dict[str, Any] = dict(nc or {})
     if spec.cross:
         x, nc = _cross_block(x, p["cross"], cfg, mode, cache, enc_out)
+        x = constrain(x, act_sharding)
         new_cache.update(nc or {})
     if spec.ffn == "moe":
         x = x + moe_ffn(_norm(x, p["moe"]["ln"], cfg), p["moe"], cfg.moe)
@@ -574,14 +586,25 @@ def run_stage(x, stage_p, stage: Stage, cfg: ArchConfig, *, mode: str,
     ``torch.utils.checkpoint`` (``jax.checkpoint`` in the JAX package):
     only the units' inputs are kept for the backward, which recomputes
     each unit's forward.  ``act_sharding`` re-places the (B, S, D)
-    activations after every block (`launch.sharding.constrain`)."""
+    activations after every block (`launch.sharding.constrain`).
+
+    Outside decode each unit's weights are gathered over the data axes
+    at use (`launch.sharding.gather_fsdp`, the FSDP schedule); under
+    remat the backward gathers them again and keeps no gathered copy.  A
+    decode step's activations (one token a row) are far smaller than the
+    weights, so there the weights stay split and the activations move."""
+    fsdp = mode != "decode"
+
     def unit_fn(x, p_unit, c_unit):
+        if fsdp:
+            p_unit = gather_fsdp(p_unit)
         ncs = []
         for i, spec in enumerate(stage.unit):
             x, nc = apply_block(x, p_unit[i], spec, cfg, mode=mode,
                                 cache=None if c_unit is None else c_unit[i],
                                 pos=pos, enc_out=enc_out,
-                                cache_len=cache_len, plain=plain)
+                                cache_len=cache_len, plain=plain,
+                                act_sharding=act_sharding)
             x = constrain(x, act_sharding)
             ncs.append(nc)
         return x, tuple(ncs)
@@ -600,16 +623,22 @@ def run_stage(x, stage_p, stage: Stage, cfg: ArchConfig, *, mode: str,
     return x, tree_map(lambda *a: torch.stack(a), *new_caches)
 
 
-def _embed(params, cfg, tokens):
+def _table(params, name: str, fsdp: bool):
+    """The embedding or head, gathered over the data axes where
+    ``fsdp`` (as :func:`run_stage` gathers a unit's weights)."""
+    return gather_fsdp(params[name]) if fsdp else params[name]
+
+
+def _embed(params, cfg, tokens, fsdp: bool):
     # gather, then cast: the same values as casting the whole table first
-    return cast(params["embed"][tokens.long()])
+    return cast(_table(params, "embed", fsdp)[tokens.long()])
 
 
-def _logits(params, cfg, x):
+def _logits(params, cfg, x, fsdp: bool):
     x = _norm(x, params["final_norm"], cfg)
     if cfg.tied_embeddings:
-        return x @ cast(params["embed"]).t()
-    return x @ cast(params["head"])
+        return x @ cast(_table(params, "embed", fsdp)).t()
+    return x @ cast(_table(params, "head", fsdp))
 
 
 def _run_encoder(params, cfg, enc_embeds):
@@ -650,7 +679,8 @@ def forward(params, cfg: ArchConfig, *, tokens, prefix_embeds=None,
             raise ValueError(f"{cfg.name}: an encoder-decoder's {mode} "
                              f"needs enc_embeds")
         enc_out = _run_encoder(params, cfg, cast(enc_embeds))
-    x = constrain(_embed(params, cfg, tokens), act_sharding)
+    fsdp = mode != "decode"
+    x = constrain(_embed(params, cfg, tokens, fsdp), act_sharding)
     if prefix_embeds is not None and mode != "decode":
         x = torch.cat([cast(prefix_embeds), x], 1)
     if cfg.kind == "encdec":
@@ -670,8 +700,8 @@ def forward(params, cfg: ArchConfig, *, tokens, prefix_embeds=None,
         new_caches.append(nc)
     if mode == "prefill":
         # only the last position's logits are consumed (next-token)
-        return _logits(params, cfg, x[:, -1:]), tuple(new_caches)
-    logits = _logits(params, cfg, x)
+        return _logits(params, cfg, x[:, -1:], fsdp), tuple(new_caches)
+    logits = _logits(params, cfg, x, fsdp)
     if mode == "train":
         return logits
     return logits, tuple(new_caches)

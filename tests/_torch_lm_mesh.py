@@ -39,11 +39,46 @@ SEED = 0
 #: ("data", "model") mesh: (seq, batch) of the decode cell.  mixtral's 2
 #: smoke kv heads do not divide "model" (its ring cache of the 16-token
 #: window views the heads); mamba2 decodes at batch 1, so nothing splits
-#: over "data" and the greedy token is an argmax over vocab-split logits
+#: over "data" and the greedy token is an argmax over vocab-split logits.
+#: The caches split their sequence over "model", which the split-keys
+#: decode keeps: mixtral's ring, whisper-base's self and cross caches,
+#: deepseek-v2-lite's compressed MLA cache
 DECODE_MESH = {"shape": (1, 4), "axes": ("data", "model")}
-DECODE_CASES = {"mixtral_8x7b": (64, 4), "mamba2_130m": (64, 1)}
+DECODE_CASES = {"mixtral_8x7b": (64, 4), "mamba2_130m": (64, 1),
+                "whisper_base": (64, 4), "deepseek_v2_lite_16b": (64, 4)}
 #: the train state restored onto the 2x2 mesh of the same four ranks
 RESTORE_ARCH = "stablelm_1_6b"
+#: the families held in test_torch_lm_mesh_families.py, each on a (2, 2)
+#: ("data", "model") mesh (so the weights are gathered over "data" at
+#: use): (seq, batch) of the train cell (2 microbatches) and the
+#: prefill.  deepseek-v2-lite's MLA and its MoE (local experts: d_ff
+#: split under the train cell's policy, the experts split in the
+#: prefill); whisper-base's encoder and cross-attention; mamba2's SSD
+#: (seq a multiple of its 32-token chunk); recurrentgemma's RG-LRU
+#: beside windowed MQA, whose one kv head "model" does not divide (the
+#: query heads split, each rank reading the kv head); internvl2's vision
+#: prefix (8 of the seq's positions).  Two launches of four ranks ("a",
+#: "b") at once
+FAMILY_MESH = {"shape": (2, 2), "axes": ("data", "model")}
+FAMILY_CASES = {
+    "deepseek_v2_lite_16b": {"launch": "a", "train": (16, 4),
+                             "prefill": (16, 4)},
+    "whisper_base": {"launch": "a", "train": (16, 4), "prefill": (16, 4)},
+    "mamba2_130m": {"launch": "b", "train": (32, 4), "prefill": (32, 4)},
+    "recurrentgemma_9b": {"launch": "b", "train": (16, 4),
+                          "prefill": (16, 4)},
+    "internvl2_26b": {"launch": "b", "train": (16, 4), "prefill": (16, 4)},
+}
+
+
+def family_archs(launch: str) -> list:
+    """The families launch ``launch`` runs."""
+    return [a for a, c in FAMILY_CASES.items() if c["launch"] == launch]
+
+
+def family_case(arch: str) -> dict:
+    """A family's case as :func:`cell` takes it."""
+    return {"arch": arch, **FAMILY_MESH, **FAMILY_CASES[arch]}
 
 
 def f32_compute():
@@ -256,8 +291,47 @@ def _decode_rank(rank: int, world: int, name: str, out: str) -> None:
     dist.destroy_process_group()
 
 
+def _families_rank(rank: int, world: int, name: str, out: str) -> None:
+    """The families of launch ``name`` (``FAMILY_CASES``) one after
+    another on the (2, 2) mesh, as :func:`_step_rank` runs a case: the
+    train step on the params drawn from ``SEED`` (placed block by block),
+    then the prefill on the same params carried as numpy from the test's
+    checkpoint (``weights_<arch>``); every key under ``<arch>/``."""
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.launch import mesh as M
+    from repro_torch.models.transformer import init_params, tree_map
+    _init(rank, world, out)
+    f32_compute()
+    mesh = M._device_mesh(FAMILY_MESH["shape"], FAMILY_MESH["axes"], "cpu")
+    got = {}
+    for arch in family_archs(name):
+        case = family_case(arch)
+        fn, (state, batch), cfg = cell(case, "train", mesh)
+        like = {"params": init_params(cfg, device="meta")}
+        saved, _, _ = restore_checkpoint(
+            Path(out).parent / f"weights_{arch}", like, device="cpu")
+        weights = tree_map(lambda t: t.numpy(), saved["params"])
+        local_shards(f"{arch}/in/state", state, got)
+        local_shards(f"{arch}/in/batch", batch, got)
+        new_state, metrics = fn(state, batch)
+        local_shards(f"{arch}/out/state", new_state, got)
+        whole(f"{arch}/out/state", new_state, got)
+        whole(f"{arch}/out/metrics", metrics, got)
+        fn, (params, pbatch), _ = cell(case, "prefill", mesh,
+                                       weights=weights)
+        local_shards(f"{arch}/in/prefill_batch", pbatch, got)
+        token, cache = fn(params, pbatch)
+        local_shards(f"{arch}/out/cache", cache, got)
+        whole(f"{arch}/out/token", {"t": token}, got)
+        whole(f"{arch}/out/cache", cache, got)
+    np.savez(f"{out}/rank{rank}.npz", **got)
+    Path(f"{out}/rank{rank}.json").write_text(
+        json.dumps({"coord": mesh.get_coordinate()}))
+    dist.destroy_process_group()
+
+
 WORKERS = {"step": _step_rank, "restore": _restore_rank,
-           "decode": _decode_rank}
+           "decode": _decode_rank, "families": _families_rank}
 
 
 def _entry(rank: int, world: int, kind: str, name: str, out: str) -> None:

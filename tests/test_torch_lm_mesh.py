@@ -221,9 +221,11 @@ def test_input_shards_equal_jax_shards(run, name):
     assert n > 40 * len(ranks)
 
 
-def _close(have, want, rtol, what):
+def _close(have, want, rtol, what, scale=None):
+    """``have`` within ``rtol`` of ``scale`` (default: max|want|)."""
     err = np.abs(have - want).max()
-    scale = np.abs(want).max()
+    if scale is None:
+        scale = np.abs(want).max()
     assert err <= rtol * max(scale, 1e-30), (what, err, scale)
 
 
@@ -247,11 +249,16 @@ def _check_step(got, ref, state, metrics, prefix, loss_rtol, moment_rtol):
                        moment_rtol)
 
 
-def check_leaf(key, have, want, lr, moment_rtol):
+def check_leaf(key, have, want, lr, moment_rtol, scale=None):
+    """A new-state leaf (or a shard of one, ``scale`` the whole leaf's
+    max|want|; default: this array's)."""
+    if scale is None:
+        scale = np.abs(want).max()
     if "opt/m/" in key or "opt/v/" in key:
-        _close(have, want, moment_rtol * (2 if "opt/v/" in key else 1), key)
+        _close(have, want, moment_rtol * (2 if "opt/v/" in key else 1), key,
+               scale)
     elif "params/" in key:
-        bound = PARAM_LR_BOUND * lr + PARAM_RTOL * np.abs(want).max()
+        bound = PARAM_LR_BOUND * lr + PARAM_RTOL * scale
         assert np.abs(have - want).max() <= bound, key
     else:
         np.testing.assert_array_equal(have, want, err_msg=key)
