@@ -297,10 +297,28 @@ Phases, each of which raises on failure (exit code != 0):
     attention block takes the split-keys path; each against the same
     cell on plain tensors within 1e-6 relative, and the repaired path
     counted as run;
-24. a ``{"kernels": [...]}`` line: per kernel its launches, error, time
-    at its path's shapes, the plain version's time, the least time the
-    card could take (its bound) and the library call's time (and, for
-    the kernels phases 15 and 16 run, their launches there);
+24. a ``{"kernels": [...]}`` line, printed after phase 25: per kernel
+    its launches, error, time at its path's shapes, the plain version's
+    time, the least time the card could take (its bound) and the library
+    call's time (and, for the kernels phases 15 and 16 run, their
+    launches there; for ``ssd_chunk``, its launches on the mesh in phase
+    25);
+25. every LM config's cells on the card's ``DeviceMesh`` (a (1, 1)
+    ("data", "model") CUDA mesh of a world-1 NCCL group): stablelm-1.6b,
+    qwen1.5-32b, deepseek-67b, mistral-large-123b, internvl2-26b,
+    mixtral-8x7b, deepseek-v2-lite-16b, recurrentgemma-9b, whisper-base
+    (1500 encoder frames) and mamba2-130m at full width, each stage cut
+    to 2 units, through ``launch.shapes.build_cell`` with its policies:
+    train (seq 1024, batch 1; at 1 unit where AdamW's copies, reckoned
+    before the cell runs, would pass 0.9 of the card's memory), prefill
+    (seq 2048, batch 1) and one decode step at the prefill cache's last
+    slot, each held to the same cell on plain tensors within 1e-6
+    relative (the loss, gradient norm and each new leaf's norm; the
+    next tokens equal, the cache and the last logits), each cell's
+    first- and second-call ms and peak allocation printed; mamba2's
+    prefill launches ``ssd_chunk`` on the DTensors' local shards once a
+    block (2), as often as on plain tensors, its blocks held to
+    ``ssd_launch_dims``; every other cell launches nothing;
 
 then the card line and, last, ``{"ok": true, "device": {...}}``.  The
 script needs the checkout beside it (``src/``) and a CUDA device.
@@ -3987,6 +4005,268 @@ def repair_phase(dev, card: str) -> None:
           f"{card}")
 
 
+#: phase 25, every LM config's cells on the card's DeviceMesh: each at
+#: full width with each stage cut to CUT_UNITS units, through
+#: launch.shapes.build_cell with its policies on a (1, 1) ("data",
+#: "model") CUDA DeviceMesh of a world-1 NCCL group, against the same
+#: cell on plain tensors (the host mesh) at PROD_DTENSOR_RTOL: train at
+#: (seq, batch) CELLS_TRAIN, prefill at CELLS_PREFILL, and one decode
+#: step at the prefill cache's last slot on the prefill's next tokens.
+#: The DTensor cell runs on the plain cell's values, wrapped leaf by leaf
+#: (one rank: each local shard is the whole tensor), so the two share
+#: their inputs; whisper-base's batches carry WHISPER_FRAMES encoder
+#: frames.  A train cell whose peak (train_cell_bytes: AdamW's copies)
+#: is reckoned past CELLS_MEMORY of the card runs at one unit a stage
+CELLS_ARCHS = ("stablelm_1_6b", "qwen1_5_32b", "deepseek_67b",
+               "mistral_large_123b", "internvl2_26b", "mixtral_8x7b",
+               "deepseek_v2_lite_16b", "recurrentgemma_9b", "whisper_base",
+               "mamba2_130m")
+CELLS_TRAIN = (1024, 1)
+CELLS_PREFILL = (2048, 1)
+CELLS_MEMORY = 0.9
+
+
+def train_cell_bytes(cfg, seq: int, batch: int) -> int:
+    """A train cell's peak reckoned before it runs: the state it is given
+    (f32 params, Adam's m and v), the gradients and their clipped copy
+    (``adamw_update``), the new state built beside the old, the update's
+    temporaries on the largest leaf (four of its size), and the logits
+    in f32 three times (the logits, their log-softmax and its
+    gradient)."""
+    from repro_torch.launch.steps import init_train_state
+    from repro_torch.models import transformer as T
+    state = init_train_state(cfg, None, "meta")
+    nbytes = [x.numel() * x.element_size() for x in T.tree_leaves(state)]
+    params = [x.numel() * 4 for x in T.tree_leaves(state["params"])]
+    logits = batch * seq * cfg.padded_vocab * 4
+    return 2 * sum(nbytes) + 2 * sum(params) + 4 * max(params) + 3 * logits
+
+
+def _as_dtensors(tree, shardings):
+    """``tree``'s tensors as DTensors placed by ``shardings`` (a tree of
+    NamedSharding on a world-1 DeviceMesh), each its own local shard:
+    no copy."""
+    import torch
+    from repro_torch.launch import sharding as sh
+
+    def one(x, s):
+        if s is None or not isinstance(x, torch.Tensor):
+            return x
+        return sh.from_local(x, s.mesh, s.placements, x.shape, x.stride())
+    return sh._zip_map(one, tree, shardings)
+
+
+def _leaf_norms(tree) -> list:
+    """Each tensor leaf's f32 norm (a DTensor's local shard: one rank)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    out = []
+    for _, x in _leaves(tree):
+        if isinstance(x, DTensor):
+            x = x.to_local()
+        if isinstance(x, torch.Tensor) and x.is_floating_point():
+            out.append(torch.linalg.vector_norm(x.float()).reshape(1))
+    return [float(v) for v in torch.cat(out).cpu()]
+
+
+def _cells_runs(label: str, fns: dict, args: dict, card: str,
+                summary) -> dict:
+    """One cell: the DTensor fn called twice (first and second call ms,
+    peak allocation above each call's start), the plain fn once; each
+    call's launch counts (every count 0 just before, read just after)
+    and ssd_chunk's blocks and, of the first DTensor call and the plain
+    call, ``summary(key, output)``; every output is freed before the
+    next call."""
+    import torch
+    from repro_torch.kernels import ssd_chunk as sc
+    got, top = {}, {}
+    for key, fn in (("dtensor", fns["dtensor"]), ("second", fns["dtensor"]),
+                    ("plain", fns["plain"])):
+        reset_all_counts()
+        out, ms, peak = _timed(fn, args["plain" if key == "plain"
+                                        else "dtensor"])
+        top[key] = torch.cuda.max_memory_allocated()
+        counts = launch_counts()
+        got[key] = (summary(key, out) if key != "second" else None, ms,
+                    peak, counts, sc.ssd_chunk_cuda.blocks)
+        del out
+    (_, m1, p1, c1, _), (_, m2, _, c2, _), (_, mp, pp, cp, _) = (
+        got["dtensor"], got["second"], got["plain"])
+    print(f"[cells] 25 {label}: DTensor first call {m1:.4f} ms, second "
+          f"{m2:.4f} ms, peak {p1 / 2**30:.3f} GiB above the call's start "
+          f"({top['dtensor'] / 2**30:.3f} GiB allocated in all); plain "
+          f"{mp:.4f} ms, peak {pp / 2**30:.3f} GiB ({top['plain'] / 2**30:.3f}"
+          f" GiB in all); launches "
+          f"{ {k: v for k, v in c1.items() if v} or 0} / "
+          f"{ {k: v for k, v in cp.items() if v} or 0} on {card}")
+    if c1 != c2:
+        raise AssertionError(f"{label}: the two DTensor calls launched "
+                             f"{c1} and {c2}")
+    return got
+
+
+def _cells_gate(label: str, what: str, got: dict, want_launches: dict,
+                exact=()) -> None:
+    """Gate one cell: the DTensor outputs within PROD_DTENSOR_RTOL of the
+    plain ones (``exact`` keys equal), the launches as wanted on both."""
+    import torch
+    d, p = got["dtensor"][0], got["plain"][0]
+    worst, same = _tree_gap(d, p)
+    equal = all(torch.equal(d[k].full_tensor() if hasattr(d[k],
+                                                          "full_tensor")
+                            else d[k], p[k]) for k in exact)
+    launches = (got["dtensor"][3], got["plain"][3])
+    print(f"[cells] 25 {label}: {what} DTensor vs plain within {worst:.3e}"
+          f" relative (tol {PROD_DTENSOR_RTOL:g}; "
+          f"{'bitwise' if same else 'not bitwise'})"
+          + (f"; {', '.join(exact)} equal {equal}" if exact else ""))
+    if not (worst <= PROD_DTENSOR_RTOL and equal
+            and all(c == want_launches for c in launches)):
+        raise AssertionError(f"{label}: the DTensor cell disagrees with "
+                             f"plain tensors, or launched {launches} "
+                             f"(want {want_launches} on both)")
+
+
+def cells_arch(arch: str, mesh, dev, card: str) -> int:
+    """Phase 25 for one config: its train, prefill and decode cells on
+    DTensors against plain tensors; returns ssd_chunk's launches in the
+    DTensor prefill's first call."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import shapes, steps
+    full = get_config(arch)
+    host = meshlib.make_host_mesh()
+    none = {k: 0 for k in launch_counts()}
+    total = torch.cuda.get_device_properties(dev).total_memory
+
+    def build(cfg, spec, **kw):
+        cells = {label: shapes.build_cell(cfg, spec, m, **kw)
+                 for label, m in (("dtensor", mesh), ("plain", host))}
+        fns = {k: c[0] for k, c in cells.items()}
+        real = shapes.materialize(cfg, spec, cells["plain"][1],
+                                  cells["plain"][2], seed=SEED)
+        if cfg.kind == "encdec":
+            batch = real[1]
+            batch["enc_embeds"] = frames(cfg, spec.batch, WHISPER_FRAMES,
+                                         dev)
+        return fns, cells["dtensor"][2], real
+
+    # train: cut to one unit where AdamW's copies would not fit
+    seq, batch = CELLS_TRAIN
+    units = CUT_UNITS
+    need = train_cell_bytes(cut_depth(full, units), seq, batch)
+    why = ""
+    if need > CELLS_MEMORY * total:
+        why = (f" (cut from {units} units: {need / 2**30:.1f} GiB of "
+               f"AdamW's copies reckoned at {units} > {CELLS_MEMORY:g} of "
+               f"the card's {total / 2**30:.1f} GiB)")
+        units = 1
+        need = train_cell_bytes(cut_depth(full, units), seq, batch)
+    cfg = cut_depth(full, units)
+    label = f"{full.name} train (seq {seq}, batch {batch}, {units} units)"
+    print(f"[cells] 25 {full.name}: train at {units} units a stage "
+          f"({cfg.n_layers} blocks), {need / 2**30:.1f} GiB reckoned{why}")
+    spec = shapes.ShapeSpec("train_cut", seq, batch, "train")
+    fns, ins, real = build(cfg, spec, microbatches=1)
+    args = {"plain": real, "dtensor": _as_dtensors(real, ins)}
+
+    def train_summary(_, out):
+        state, metrics = out
+        return {"loss": metrics["loss"], "grad_norm": metrics["grad_norm"],
+                "state_norms": torch.tensor(_leaf_norms(state),
+                                            dtype=torch.float64)}
+    got = _cells_runs(label, fns, args, card, train_summary)
+    _cells_gate(label, "loss, grad norm and every new leaf's norm", got,
+                none)
+    del fns, args, real, got
+    torch.cuda.empty_cache()
+
+    # prefill, then decode on its cache at the last slot
+    cfg = cut_depth(full, CUT_UNITS)
+    seq, batch = CELLS_PREFILL
+    spec = shapes.ShapeSpec("prefill_cut", seq, batch, "prefill")
+    fns, ins, real = build(cfg, spec)
+    params = {"plain": real[0], "dtensor": _as_dtensors(real[0], ins[0])}
+    args = {"plain": real, "dtensor": (params["dtensor"],
+                                       _as_dtensors(real[1], ins[1]))}
+    captured = []
+    greedy = steps._greedy
+
+    def capture(cfg_, logits):
+        captured.append(logits)
+        return greedy(cfg_, logits)
+    ssd_blocks = sum(st.n_units * sum(sp.mixer == "ssd" for sp in st.unit)
+                     for st in cfg.stages)
+    want = dict(none, ssd_chunk=ssd_blocks)
+    kept = {}
+
+    def serve_summary(key, out):
+        tokens, cache = out
+        kept[key] = (tokens, cache)
+        return {"tokens": tokens, "cache": cache, "logits": captured[-1]}
+    steps._greedy = capture
+    try:
+        label = f"{full.name} prefill (seq {seq}, batch {batch})"
+        got = _cells_runs(label, fns, args, card, serve_summary)
+        _cells_gate(label, "next tokens, cache and last logits", got, want,
+                    exact=("tokens",))
+        mesh_launches = got["dtensor"][3]["ssd_chunk"]
+        if ssd_blocks:
+            m = cfg.ssm
+            lay = sc.ssd_launch_dims(batch, seq, m.n_heads, m.head_dim,
+                                     m.n_groups, m.d_state,
+                                     min(m.chunk, seq), sc.sm_count(dev))
+            blocks = [got[k][4] for k in ("dtensor", "plain")]
+            print(f"[cells] 25 {label}: ssd_chunk {mesh_launches} launches "
+                  f"on the DTensors' local shards == {ssd_blocks} SSD "
+                  f"blocks == the plain run's "
+                  f"{got['plain'][3]['ssd_chunk']}; blocks launched "
+                  f"{blocks[0]} (plain {blocks[1]}) == {ssd_blocks} x "
+                  f"ssd_launch_dims {lay.blocks}")
+            if blocks != [ssd_blocks * lay.blocks] * 2:
+                raise AssertionError(f"{label}: ssd_chunk ran other blocks "
+                                     f"than ssd_launch_dims gives")
+        del got
+        spec = shapes.ShapeSpec("decode_cut", seq, batch, "decode")
+        fns = {label_: shapes.build_cell(cfg, spec, m)[0]
+               for label_, m in (("dtensor", mesh), ("plain", host))}
+        args = {key: (params[key], kept[key][1], kept[key][0][:, None],
+                      seq - 1) for key in ("dtensor", "plain")}
+        kept.clear()
+        label = f"{full.name} decode (one step at slot {seq - 1})"
+        got = _cells_runs(label, fns, args, card, serve_summary)
+        _cells_gate(label, "next tokens, cache and logits", got, none,
+                    exact=("tokens",))
+    finally:
+        steps._greedy = greedy
+    del fns, args, real, params, got, kept, captured
+    torch.cuda.empty_cache()
+    return mesh_launches
+
+
+def cells_phase(dev, card: str) -> dict:
+    """Phase 25: every LM config's train, prefill and decode cells on a
+    (1, 1) CUDA DeviceMesh against plain tensors (CELLS_ARCHS); returns
+    ssd_chunk's launches on the mesh (the DTensor prefills' first
+    calls)."""
+    import torch
+    t_phase = time.perf_counter()
+    launches = 0
+    print(f"[cells] 25 {card}")
+    with world1_mesh() as mesh:
+        for arch in CELLS_ARCHS:
+            t0 = time.perf_counter()
+            launches += cells_arch(arch, mesh, dev, card)
+            print(f"[cells] 25 {arch} in {time.perf_counter() - t0:.3f} s, "
+                  f"peak {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+                  f"GiB allocated on {card}")
+    print(f"[cells] phase 25 in {time.perf_counter() - t_phase:.3f} s on "
+          f"{card}")
+    return {"ssd_chunk": launches}
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -4234,8 +4514,17 @@ def main() -> int:
     roofline_phase(dev, card)
     # -- 23. the repaired mesh paths: local experts, split-keys decode ---
     repair_phase(dev, card)
-    print(f"[main] phases 1-23 in {time.perf_counter() - t_main:.3f} s")
+    # -- 25. every LM config's cells on the card's DeviceMesh ------------
+    on_mesh = cells_phase(dev, card)
+    print(f"[main] phases 1-23 and 25 in {time.perf_counter() - t_main:.3f}"
+          f" s")
     for row in rows:
+        if row["name"] in on_mesh:
+            row["mesh_launches"] = on_mesh[row["name"]]
+            row["mesh_path"] = ("phase 25: build_cell prefill of "
+                                "mamba2-130m cut to 2 units, seq 2048, on "
+                                "a (1, 1) CUDA DeviceMesh (DTensors' local "
+                                "shards)")
         if row["name"] in served:
             row["serving_launches"] = served[row["name"]]
         if row["name"] in tuned:

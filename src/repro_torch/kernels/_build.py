@@ -9,8 +9,10 @@ import; an unchanged source found built is loaded as it is.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
 :func:`launch` calls an entry point and raises on the CUDA error it
 returns; :func:`operand_dtype`, :func:`cuda_operand` and :func:`ptr`
-check and prepare its tensor arguments, and :func:`no_backward` refuses
-a call that autograd would have to differentiate.
+check and prepare its tensor arguments (:func:`ptr` and
+:func:`address` refuse a tensor without storage of its own), and
+:func:`no_backward` refuses a call that autograd would have to
+differentiate.
 
     PYTHONPATH=src python -m repro_torch.kernels._build --ptxas-report \
         [source.cu ...]
@@ -34,6 +36,7 @@ from pathlib import Path
 from typing import Dict, Sequence
 
 import torch
+from torch.utils._python_dispatch import is_traceable_wrapper_subclass
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -172,9 +175,29 @@ def cuda_operand(t: torch.Tensor, name: str) -> torch.Tensor:
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    """A tensor's device address as a C pointer argument."""
-    return ctypes.c_void_p(t.data_ptr())
+def address(t: torch.Tensor, name: str) -> int:
+    """The address of ``t``'s first element, the one number a kernel
+    entry and an alignment probe may take from a tensor.  Raises
+    ``TypeError``, naming the operand, for a tensor without storage of
+    its own: a wrapper subclass (a ``DTensor``, whose ``data_ptr()`` is 0:
+    a kernel takes each rank's local shard) or a tensor with elements
+    at address 0 (``meta``).  So no kernel launches on a null operand,
+    and no probe calls one aligned."""
+    if is_traceable_wrapper_subclass(t):
+        raise TypeError(f"{name} is a {type(t).__name__}, a wrapper "
+                        f"without storage of its own: a kernel takes a "
+                        f"plain tensor (a DTensor's local shard)")
+    addr = t.data_ptr()
+    if addr == 0 and t.numel() > 0:
+        raise TypeError(f"{name} ({t.device}, {tuple(t.shape)}) has no "
+                        f"storage: its address is 0")
+    return addr
+
+
+def ptr(t: torch.Tensor, name: str) -> ctypes.c_void_p:
+    """A tensor's device address as a C pointer argument (:func:`address`
+    checks it)."""
+    return ctypes.c_void_p(address(t, name))
 
 
 def launch(fn, device: torch.device, *args) -> None:

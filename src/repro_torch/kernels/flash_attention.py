@@ -33,8 +33,8 @@ from typing import NamedTuple
 
 import torch
 
-from ._build import (cuda_operand, launch, no_backward, operand_dtype,
-                     ptr)
+from ._build import (address, cuda_operand, launch, no_backward,
+                     operand_dtype, ptr)
 from .tetris_matmul import sm_count
 from .window_product import SMEM_LIMIT
 
@@ -130,9 +130,10 @@ def vector_staging(*operands: torch.Tensor) -> bool:
     """Whether the kernel may stage with 16-byte copies: every operand's
     base is 16-byte aligned and its rows (contiguous, of d values) are a
     multiple of 16 bytes."""
-    return all(t.data_ptr() % 16 == 0
-               and t.shape[-1] * t.element_size() % 16 == 0
-               for t in operands)
+    bases = [address(t, f"vector_staging operand {i}")
+             for i, t in enumerate(operands)]
+    return all(a % 16 == 0 and t.shape[-1] * t.element_size() % 16 == 0
+               for a, t in zip(bases, operands))
 
 
 @functools.cache
@@ -175,9 +176,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rows = rows or flash_launch_dims(bh, sq, d, sm_count(q.device), sk=sk,
                                      causal=causal, q_offset=q_offset).rows
     out = torch.empty_like(q)
-    launch(_library().flash_attention_fwd, q.device, ptr(q), ptr(k), ptr(v),
-           ptr(out), bh, sq, sk, d, int(causal), q_offset,
-           ctypes.c_float(1.0 / math.sqrt(d)), rows,
+    launch(_library().flash_attention_fwd, q.device, ptr(q, "q"),
+           ptr(k, "k"), ptr(v, "v"), ptr(out, "out"), bh, sq, sk, d,
+           int(causal), q_offset, ctypes.c_float(1.0 / math.sqrt(d)), rows,
            int(dtype == torch.bfloat16), int(vector_staging(q, k, v, out)))
     flash_attention_cuda.launches += 1
     return out

@@ -97,7 +97,7 @@ def runner(lib, shape, bn, x, w, out):
     g, m, d, f = shape
     vec = int(tm.vector_staging(x, w, out))
     blocks = ctypes.c_int(0)
-    p = [tm.ptr(t) for t in (x, w, out)]
+    p = [tm.ptr(t, n) for t, n in ((x, "x"), (w, "w"), (out, "out"))]
     if g == 1:
         entry = lib.tetris_matmul_f32
         args = (*p, m, f, d, x.stride(0), w.stride(0), out.stride(0))

@@ -197,8 +197,8 @@ def im2win_conv_cuda(x: torch.Tensor, w: torch.Tensor, *,
     out = torch.empty((x.shape[0], o_h, o_w, w.shape[3]),
                       dtype=torch.float32, device=x.device)
     blocks = ctypes.c_int(0)
-    launch(_library().im2win_conv_f32, x.device, ptr(x), ptr(w), ptr(out),
-           *args, ctypes.byref(blocks))
+    launch(_library().im2win_conv_f32, x.device, ptr(x, "x"), ptr(w, "w"),
+           ptr(out, "out"), *args, ctypes.byref(blocks))
     im2win_conv_cuda.launches += 1
     im2win_conv_cuda.steps += steps
     im2win_conv_cuda.blocks += blocks.value

@@ -372,7 +372,8 @@ def sdk_whole(xt: torch.Tensor, kt: torch.Tensor, g: TileGeom
     b = xt.shape[0]
     out = _output(g, b, kt.shape[3], xt.device)
     blocks = ctypes.c_int(0)
-    launch(_library().sdk_conv_whole, xt.device, ptr(xt), ptr(kt), ptr(out),
+    launch(_library().sdk_conv_whole, xt.device, ptr(xt, "xt"),
+           ptr(kt, "kt"), ptr(out, "out"),
            ctypes.byref(_c_geom(xt, kt, g, whole_launch_dims(b, g))),
            ctypes.byref(blocks))
     sdk_whole.launches += 1
@@ -391,7 +392,8 @@ def sdk_window(xt: torch.Tensor, kt: torch.Tensor, g: TileGeom
     _check_operands(xt, kt, g)
     b = xt.shape[0]
     out = _output(g, b, kt.shape[3], xt.device)
-    launch(_library().sdk_conv_window, xt.device, ptr(xt), ptr(kt), ptr(out),
+    launch(_library().sdk_conv_window, xt.device, ptr(xt, "xt"),
+           ptr(kt, "kt"), ptr(out, "out"),
            ctypes.byref(_c_geom(xt, kt, g, window_launch_dims(b, g))))
     sdk_window.launches += 1
     sdk_window.steps += g.steps

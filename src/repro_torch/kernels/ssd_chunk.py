@@ -30,7 +30,8 @@ B and C come as (B, S, G, N) and head ``h`` reads group ``h // (H // G)``
 (``G == H`` is the TPU kernel's pre-repeated signature).
 :func:`ssd_chunk` launches the kernel for CUDA tensors (counted in
 ``ssd_chunk_cuda.launches``, its blocks in ``ssd_chunk_cuda.blocks``) and
-takes :func:`ssd_chunk_plain` only for CPU tensors.
+takes :func:`ssd_chunk_plain` only for CPU tensors; a ``DTensor`` runs
+the same choice on each rank's local shards (:func:`ssd_chunk_local`).
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from ._build import launch, no_backward, ptr
+from ._build import address, launch, no_backward, ptr
 from .tetris_matmul import sm_count
 from .window_product import SMEM_LIMIT
 
@@ -77,11 +78,47 @@ def _check_shapes(x, dt, a_log, b, c, chunk: int) -> None:
         raise ValueError(f"S {s} % chunk {chunk} != 0")
 
 
+class _LocalCumsum(torch.autograd.Function):
+    """``torch.cumsum`` of a ``DTensor`` whose backward, the reversed
+    cumsum autograd writes as flip, cumsum, flip, runs on the local
+    shard (``dim`` made whole first where it is split): DTensor has no
+    strategy for ``aten.flip`` in every torch (none in 2.11), and the
+    local ops are the ones autograd runs on a plain tensor, so the
+    gradient is bitwise the same."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int):
+        ctx.dim = dim % x.ndim
+        return torch.cumsum(x, ctx.dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Replicate, Shard
+        from ..launch.sharding import from_local, move
+        dim = ctx.dim
+        if g.numel() <= 1 or g.shape[dim] == 1:
+            return g, None
+        pl = [Replicate() if isinstance(p, Shard) and p.dim == dim else p
+              for p in g.placements]
+        g = move(g, pl)
+        local = g.to_local().flip(dim).cumsum(dim).flip(dim)
+        return from_local(local, g.device_mesh, pl, g.shape), None
+
+
+def cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.cumsum(x, dim)``; on a ``DTensor`` (not ``meta``: the dry
+    run keeps DTensor's own op) through :class:`_LocalCumsum`."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor) and x.device.type != "meta":
+        return _LocalCumsum.apply(x, dim)
+    return torch.cumsum(x, dim)
+
+
 def segsum(a: torch.Tensor) -> torch.Tensor:
     """a (..., l) -> (..., l, l) with out[i,j] = sum a[j+1..i], -inf above
     the diagonal (decay matrix exponent: its exp is 0 there, never NaN)."""
     n = a.shape[-1]
-    cs = torch.cumsum(a, -1)
+    cs = cumsum(a, -1)
     out = cs[..., :, None] - cs[..., None, :]
     mask = torch.ones(n, n, dtype=torch.bool, device=a.device).tril()
     return out.masked_fill(~mask, float("-inf"))
@@ -108,7 +145,7 @@ def ssd_chunk_plain(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     cb = torch.einsum("bnihs,bnjhs->bnhij", cf, bf)
     xdt = xf * dtf[..., None]
     y = torch.einsum("bnhij,bnjhp->bnihp", cb * dec, xdt)
-    cs = torch.cumsum(da, dim=2)
+    cs = cumsum(da, 2)
     dec_end = torch.exp(cs[:, :, -1:, :] - cs)                  # (B,nc,L,H)
     states = torch.einsum("bnjhs,bnjh,bnjhp->bnhps", bf, dec_end, xdt)
     return y.reshape(bsz, s, h, p).to(x.dtype), states
@@ -246,9 +283,11 @@ def vector_staging(*operands: torch.Tensor) -> bool:
     """Whether the bf16 kernel may stage with 16-byte copies: every
     operand's base is 16-byte aligned, its strides but the last and its
     rows (N or P values) multiples of 8 bf16."""
-    return all(t.data_ptr() % 16 == 0 and t.shape[-1] % 8 == 0
+    bases = [address(t, f"vector_staging operand {i}")
+             for i, t in enumerate(operands)]
+    return all(a % 16 == 0 and t.shape[-1] % 8 == 0
                and all(s % 8 == 0 for s in t.stride()[:-1])
-               for t in operands)
+               for a, t in zip(bases, operands))
 
 
 class SsdArgs(ctypes.Structure):
@@ -318,8 +357,9 @@ def ssd_chunk_cuda(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     lay = (ssd_launch_dims(bsz, s, h, p, g, n, chunk, sm_count(x.device),
                            slice_heads=slice_heads) if bf16 else None)
     blocks = ctypes.c_int(0)
-    launch(_library().ssd_chunk_fwd, x.device, ptr(x), ptr(dt), ptr(a_log),
-           ptr(b), ptr(c), ptr(y), ptr(states), ctypes.byref(args),
+    launch(_library().ssd_chunk_fwd, x.device, ptr(x, "x"), ptr(dt, "dt"),
+           ptr(a_log, "a_log"), ptr(b, "b"), ptr(c, "c"), ptr(y, "y"),
+           ptr(states, "states"), ctypes.byref(args),
            int(bf16), lay.heads if bf16 else 0,
            lay.state_level if bf16 else 0,
            int(bf16 and vector_staging(x, b, c)), ctypes.byref(blocks))
@@ -337,6 +377,73 @@ def reset_counts() -> None:
     ssd_chunk_cuda.blocks = 0
 
 
+def local_placements(placements, mesh_shape, batch: int, heads: int,
+                     groups: int) -> list:
+    """The placements of x (B,S,H,P) (and dt, and the states (B, S/chunk,
+    H, P, N)) under which every rank runs the kernel on its local shards:
+    x's splits of the batch (dim 0) and of the heads (dim 2) where they
+    are even and each rank's heads read whole groups or all read one
+    group; ``Replicate()`` on every other mesh dim.  So these are
+    redistributed first: a ``Partial``, a split of the sequence or of P,
+    an uneven batch or head split (``ssd_chunked`` gathers an uneven head
+    split itself, before this), and heads that straddle a group (all
+    head splits then)."""
+    from torch.distributed.tensor import Replicate, Shard
+    pl = [p if type(p) is Shard and p.dim in (0, 2) else Replicate()
+          for p in placements]
+    rep = heads // groups
+    for dim, size in ((0, batch), (2, heads)):
+        ways = math.prod(n for n, p in zip(mesh_shape, pl)
+                         if p == Shard(dim))
+        local = size // ways
+        if size % ways or (dim == 2 and local % rep and rep % local):
+            pl = [Replicate() if p == Shard(dim) else p for p in pl]
+    return pl
+
+
+def ssd_chunk_local(x, dt, a_log, b, c, *, chunk: int = 128
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ssd_chunk` on ``DTensor`` operands: each rank runs the
+    per-device function on its local shards (:func:`ssd_chunk_cuda` on
+    the card, :func:`ssd_chunk_plain` on the CPU) and the outputs are
+    wrapped back, y with x's placements and the states with the same
+    batch and head splits.  x and dt are first placed by
+    :func:`local_placements` (which says what is redistributed); b and c
+    keep x's batch split and take the rest whole, and a rank slices from
+    them the groups its heads read, and from a_log (made whole) its
+    heads."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from ..launch.sharding import from_local, local_part, move
+    mesh = x.device_mesh
+    bsz, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    _check_shapes(x, dt, a_log, b, c, chunk)
+    pl = local_placements(x.placements, mesh.shape, bsz, h, g)
+    x, dt = move(x, pl), move(dt, pl)
+    _, off = local_part(x.shape, mesh, pl)
+    xl = x.to_local()
+    h0, hl = off[2], xl.shape[2]
+    rep = h // g
+    g0, g1 = h0 // rep, (h0 + hl - 1) // rep + 1
+    bc_pl = [Shard(0) if q == Shard(0) else Replicate() for q in pl]
+    b, c = (move(t, bc_pl).to_local()[:, :, g0:g1] for t in (b, c))
+    if isinstance(a_log, DTensor):
+        a_log = move(a_log, [Replicate()] * mesh.ndim).to_local()
+    a_log = a_log[h0:h0 + hl]
+    dtl = dt.to_local()
+    if xl.device.type == "cuda":
+        y, states = ssd_chunk_cuda(xl, dtl, a_log, b, c, chunk=chunk)
+    elif xl.device.type == "cpu":
+        y, states = ssd_chunk_plain(xl, dtl, a_log, b, c, chunk=chunk)
+    else:
+        raise ValueError(f"ssd_chunk: unsupported device {xl.device}")
+    # contiguous, as the global strides from_local states: the plain
+    # version's y is a permuted view (the kernel's outputs already are)
+    return (from_local(y.contiguous(), mesh, pl, x.shape),
+            from_local(states.contiguous(), mesh, pl,
+                       (bsz, s // chunk, h, p, n)))
+
+
 def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
               b: torch.Tensor, c: torch.Tensor, *, chunk: int = 128
               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -345,8 +452,14 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     (B, S/chunk, H, P, N) f32).  CUDA tensors launch the kernel; CPU
     tensors take :func:`ssd_chunk_plain`, and so do ``meta`` tensors
     (shapes without data: the dry run, ``launch.dryrun``, which reaches
-    no kernel).  No backward (:func:`_build.no_backward`)."""
+    no kernel), ``DTensor``s on ``meta`` included.  Other ``DTensor``s
+    run on each rank's local shards (:func:`ssd_chunk_local`): on the
+    card that launches the kernel or raises.  No backward
+    (:func:`_build.no_backward`)."""
+    from torch.distributed.tensor import DTensor
     no_backward("ssd_chunk", x, dt, a_log, b, c)
+    if isinstance(x, DTensor) and x.device.type != "meta":
+        return ssd_chunk_local(x, dt, a_log, b, c, chunk=chunk)
     if x.device.type == "cuda":
         return ssd_chunk_cuda(x, dt, a_log, b, c, chunk=chunk)
     if x.device.type in ("cpu", "meta"):

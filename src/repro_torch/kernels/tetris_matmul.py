@@ -30,8 +30,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from ._build import (cuda_operand, launch, no_backward, operand_dtype,
-                     ptr)
+from ._build import (address, cuda_operand, launch, no_backward,
+                     operand_dtype, ptr)
 
 SOURCE = "matmul.cu"
 
@@ -77,9 +77,10 @@ def vector_staging(*operands: torch.Tensor) -> bool:
     """Whether the kernel may stage with 16-byte copies: every operand's
     base is 16-byte aligned and every stride but the last (1) a multiple
     of 4 floats."""
-    return all(t.data_ptr() % 16 == 0 and all(s % 4 == 0
-                                              for s in t.stride()[:-1])
-               for t in operands)
+    bases = [address(t, f"vector_staging operand {i}")
+             for i, t in enumerate(operands)]
+    return all(a % 16 == 0 and all(s % 4 == 0 for s in t.stride()[:-1])
+               for a, t in zip(bases, operands))
 
 
 def launch_gemm(entry, x: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
@@ -89,8 +90,8 @@ def launch_gemm(entry, x: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
     :func:`vector_staging`; returns the blocks the C entry launched."""
     d = gemm_launch_dims(groups, m, n, sm_count(x.device))
     blocks = ctypes.c_int(0)
-    launch(entry, x.device, ptr(x), ptr(w), ptr(out), *args, d.bn,
-           int(vector_staging(x, w, out)), ctypes.byref(blocks))
+    launch(entry, x.device, ptr(x, "x"), ptr(w, "w"), ptr(out, "out"),
+           *args, d.bn, int(vector_staging(x, w, out)), ctypes.byref(blocks))
     return blocks.value
 
 

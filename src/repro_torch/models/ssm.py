@@ -5,8 +5,9 @@ Prefill runs the chunked algorithm: the intra-chunk quadratic part and
 each chunk's final state on the ``ssd_chunk`` kernel
 (:mod:`repro_torch.kernels.ssd_chunk`), then the inter-chunk state
 recurrence (a loop over chunks) and its contribution to y here, in f32.
-Decode is the O(1) recurrent update.  ``segsum`` lives beside the
-kernel's plain version, which uses it, and is re-exported here.
+Decode is the O(1) recurrent update.  ``segsum`` and ``cumsum`` (whose
+backward runs on a ``DTensor``'s local shard) live beside the kernel's
+plain version, which uses them, and are re-exported here.
 """
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..kernels.ssd_chunk import segsum, ssd_chunk, ssd_chunk_plain  # noqa: F401
+from ..kernels.ssd_chunk import (cumsum, segsum, ssd_chunk,  # noqa: F401
+                                 ssd_chunk_plain)
 from ..launch.sharding import gather_uneven
 from .common import cast
 
@@ -61,7 +63,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     y_intra, states = intra(x, dt, a_log, b, c, chunk=chunk)
 
     a = -torch.exp(a_log.to(f32))
-    da_cs = torch.cumsum((dt.to(f32) * a).reshape(bsz, nc, chunk, h), 2)
+    da_cs = cumsum((dt.to(f32) * a).reshape(bsz, nc, chunk, h), 2)
     chunk_decay = torch.exp(da_cs[:, :, -1])                  # (B,nc,H)
     hs = (x.new_zeros((bsz, h, p, n), dtype=f32) if init_state is None
           else init_state.to(f32))

@@ -7,6 +7,7 @@ Each rank writes its local shards, keyed ``<leaf path>@<coordinate>``,
 and the whole outputs to ``<out>/rank<r>.npz``; the test holds them to
 the JAX package's shards at the same mesh coordinate.  This module
 imports no JAX: the ranks import it by name."""
+import contextlib
 import json
 import os
 import sys
@@ -71,6 +72,22 @@ FAMILY_CASES = {
 }
 
 
+#: the SSD chunks of mamba2's prefill on the (2, 2) mesh, each through
+#: ssd_chunk's local-shard route against ssd_chunk_plain's DTensor ops
+#: (tolerance relative to each output's max): the chunk's inputs as the
+#: cell placed them, and redistributed to the heads split over "model"
+#: with the batch over "data"; and three cases of synthetic inputs
+#: (x (B, S, H, P), G groups, chunk) that the route redistributes first:
+#: heads that straddle a group (6 heads in 3 groups, 3 a rank), an
+#: uneven batch split (3 over "data") and a Partial over "data" (each
+#: rank on it holding half of x)
+SSD_RTOL = 1e-6
+SSD_SYNTHETIC = {"straddling": ((4, 32, 6, 8), 3, 16),
+                 "uneven": ((3, 32, 6, 8), 1, 16),
+                 "partial": ((4, 32, 4, 8), 1, 16)}
+SSD_CASES = ("as_placed", "heads_over_model", *SSD_SYNTHETIC)
+
+
 def family_archs(launch: str) -> list:
     """The families launch ``launch`` runs."""
     return [a for a, c in FAMILY_CASES.items() if c["launch"] == launch]
@@ -126,6 +143,108 @@ def whole(prefix: str, tree, out: dict) -> None:
             leaf = leaf.full_tensor()
         if isinstance(leaf, torch.Tensor):
             out[f"{prefix}/{key}"] = leaf.detach().float().numpy()
+
+
+def _ssd_gap(mesh, args: tuple, chunk: int) -> tuple:
+    """(worst gap relative to each output's max, bitwise, the placements
+    the route ran on) of ``ssd_chunk`` (the local-shard route) against
+    ``ssd_chunk_plain`` on the same DTensors (its DTensor ops, under the
+    cells' ``spmd``; an uneven split gathered first, as DTensor flattens
+    none)."""
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.launch import sharding as sh
+    x, _, _, b, _ = args
+    ran = sc.local_placements(x.placements, mesh.shape, x.shape[0],
+                              x.shape[2], b.shape[2])
+    even = []
+    for t in args:
+        for dim in (0, 2)[:t.ndim]:
+            t = sh.gather_uneven(t, dim)
+        even.append(t)
+    with sh.spmd(mesh):
+        got = sc.ssd_chunk(*args, chunk=chunk)
+        want = sc.ssd_chunk_plain(*even, chunk=chunk)
+    worst, same = 0.0, True
+    for g, w in zip(got, want):
+        g, w = g.full_tensor(), w.full_tensor()
+        same = same and bool(torch.equal(g, w))
+        worst = max(worst, float((g - w).abs().max() / w.abs().max()))
+    return worst, same, str(ran)
+
+
+def _ssd_synthetic(mesh, shape: tuple, groups: int, name: str) -> tuple:
+    """The inputs of a synthetic SSD case, the same values on every rank
+    (a generator seeded from ``SEED``), placed as the case says."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from repro_torch.launch import sharding as sh
+    bsz, s, h, p = shape
+    g = torch.Generator().manual_seed(SEED)
+    x = torch.randn(shape, generator=g)
+    dt = torch.rand((bsz, s, h), generator=g) * 0.5
+    a_log = torch.randn(h, generator=g) * 0.5
+    b, c = (torch.randn((bsz, s, groups, p), generator=g) for _ in "bc")
+    heads = {"straddling": [Shard(0), Shard(2)],
+             "uneven": [Shard(0), Shard(2)],
+             "partial": [Replicate(), Shard(2)]}[name]
+    rest = [Shard(0), Replicate()]
+
+    def placed(full, pl):
+        local, off = sh.local_part(full.shape, mesh, pl)
+        part = full[tuple(slice(o, o + n) for o, n in zip(off, local))]
+        return sh.from_local(part, mesh, pl, full.shape)
+    xd = placed(x, heads)
+    if name == "partial":           # half of x on each rank over "data"
+        xd = sh.from_local(xd.to_local() * 0.5, mesh,
+                           [Partial(), heads[1]], x.shape)
+    return (xd, placed(dt, heads), placed(a_log, [Replicate()] * 2),
+            placed(b, rest), placed(c, rest))
+
+
+def _ssd_checks(mesh, recorded: list, got: dict, prefix: str) -> None:
+    """Each case of ``SSD_CASES`` under ``<prefix>/ssd/<case>``: the gap
+    and bitwise flag, and the placements the route ran on; the recorded
+    chunks (``(args, chunk)`` of the prefill's calls) give the first
+    two, the worst over the calls."""
+    from torch.distributed.tensor import Shard
+    from repro_torch.launch.sharding import move
+    cases = {"as_placed": [(a, k) for a, k in recorded],
+             "heads_over_model": [
+                 ((move(x, [Shard(0), Shard(2)]),
+                   move(dt, [Shard(0), Shard(2)]), a_log, b, c), k)
+                 for (x, dt, a_log, b, c), k in recorded]}
+    for name, (shape, groups, chunk) in SSD_SYNTHETIC.items():
+        cases[name] = [(_ssd_synthetic(mesh, shape, groups, name), chunk)]
+    for name, calls in cases.items():
+        gaps = [_ssd_gap(mesh, args, chunk) for args, chunk in calls]
+        got[f"{prefix}/ssd/{name}/gap"] = np.array(
+            [max(g for g, _, _ in gaps), all(s for _, s, _ in gaps)])
+        got[f"{prefix}/ssd/{name}/placements"] = np.array(
+            sorted({pl for _, _, pl in gaps}))
+
+
+@contextlib.contextmanager
+def without_flip_strategy():
+    """DTensor without a sharding strategy for ``aten.flip``, as the torch
+    the card runs (2.11) ships it: this torch's entries for it taken out
+    of the propagator (and its cache cleared), then put back.  A
+    ``DTensor`` flip then raises ``NotImplementedError``, as there."""
+    from torch.distributed.tensor import DTensor
+    prop = DTensor._op_dispatcher.sharding_propagator
+    op = torch.ops.aten.flip.default
+    saved = {}
+    for name in ("op_strategy_funcs", "op_single_dim_strategy_funcs",
+                 "op_to_schema_info_for_single_dim_strategy", "op_to_rules",
+                 "op_to_schema_info"):
+        table = getattr(prop, name, None)
+        if isinstance(table, dict) and op in table:
+            saved[name] = table.pop(op)
+    prop.propagate_op_sharding.cache_clear()
+    try:
+        yield
+    finally:
+        for name, entry in saved.items():
+            getattr(prop, name)[op] = entry
+        prop.propagate_op_sharding.cache_clear()
 
 
 def _init(rank: int, world: int, out: str) -> None:
@@ -291,39 +410,70 @@ def _decode_rank(rank: int, world: int, name: str, out: str) -> None:
     dist.destroy_process_group()
 
 
+def _family_cells(arch: str, mesh, out: str, got: dict, recorded: list,
+                  local_calls: list) -> None:
+    """One family's train step and prefill on ``mesh`` into ``got``
+    (:func:`_families_rank`)."""
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.models.transformer import init_params, tree_map
+    case = family_case(arch)
+    fn, (state, batch), cfg = cell(case, "train", mesh)
+    like = {"params": init_params(cfg, device="meta")}
+    saved, _, _ = restore_checkpoint(
+        Path(out).parent / f"weights_{arch}", like, device="cpu")
+    weights = tree_map(lambda t: t.numpy(), saved["params"])
+    local_shards(f"{arch}/in/state", state, got)
+    local_shards(f"{arch}/in/batch", batch, got)
+    new_state, metrics = fn(state, batch)
+    local_shards(f"{arch}/out/state", new_state, got)
+    whole(f"{arch}/out/state", new_state, got)
+    whole(f"{arch}/out/metrics", metrics, got)
+    fn, (params, pbatch), _ = cell(case, "prefill", mesh, weights=weights)
+    local_shards(f"{arch}/in/prefill_batch", pbatch, got)
+    recorded.clear()
+    local_calls.clear()
+    token, cache = fn(params, pbatch)
+    got[f"{arch}/ssd/calls"] = np.array([len(recorded), len(local_calls)])
+    if recorded:
+        _ssd_checks(mesh, recorded, got, arch)
+    local_shards(f"{arch}/out/cache", cache, got)
+    whole(f"{arch}/out/token", {"t": token}, got)
+    whole(f"{arch}/out/cache", cache, got)
+
+
 def _families_rank(rank: int, world: int, name: str, out: str) -> None:
     """The families of launch ``name`` (``FAMILY_CASES``) one after
     another on the (2, 2) mesh, as :func:`_step_rank` runs a case: the
     train step on the params drawn from ``SEED`` (placed block by block),
     then the prefill on the same params carried as numpy from the test's
-    checkpoint (``weights_<arch>``); every key under ``<arch>/``."""
-    from repro_torch.checkpoint import restore_checkpoint
+    checkpoint (``weights_<arch>``); every key under ``<arch>/``.  The
+    prefill's SSD chunks (mamba2) are recorded and checked on the
+    local-shard route (:func:`_ssd_checks`), with the count of chunks
+    and of the route's calls under ``<arch>/ssd/calls``."""
+    from repro_torch.kernels import ssd_chunk as sc
     from repro_torch.launch import mesh as M
-    from repro_torch.models.transformer import init_params, tree_map
+    from repro_torch.models import ssm
     _init(rank, world, out)
     f32_compute()
     mesh = M._device_mesh(FAMILY_MESH["shape"], FAMILY_MESH["axes"], "cpu")
     got = {}
-    for arch in family_archs(name):
-        case = family_case(arch)
-        fn, (state, batch), cfg = cell(case, "train", mesh)
-        like = {"params": init_params(cfg, device="meta")}
-        saved, _, _ = restore_checkpoint(
-            Path(out).parent / f"weights_{arch}", like, device="cpu")
-        weights = tree_map(lambda t: t.numpy(), saved["params"])
-        local_shards(f"{arch}/in/state", state, got)
-        local_shards(f"{arch}/in/batch", batch, got)
-        new_state, metrics = fn(state, batch)
-        local_shards(f"{arch}/out/state", new_state, got)
-        whole(f"{arch}/out/state", new_state, got)
-        whole(f"{arch}/out/metrics", metrics, got)
-        fn, (params, pbatch), _ = cell(case, "prefill", mesh,
-                                       weights=weights)
-        local_shards(f"{arch}/in/prefill_batch", pbatch, got)
-        token, cache = fn(params, pbatch)
-        local_shards(f"{arch}/out/cache", cache, got)
-        whole(f"{arch}/out/token", {"t": token}, got)
-        whole(f"{arch}/out/cache", cache, got)
+    # record the prefill's SSD chunks and the local-shard route's calls
+    recorded, local_calls = [], []
+    chunk_fn, local_fn = ssm.ssd_chunk, sc.ssd_chunk_local
+
+    def recording(x, dt, a_log, b, c, *, chunk):
+        recorded.append(((x, dt, a_log, b, c), chunk))
+        return chunk_fn(x, dt, a_log, b, c, chunk=chunk)
+
+    def counting(*a, **k):
+        local_calls.append(1)
+        return local_fn(*a, **k)
+    ssm.ssd_chunk, sc.ssd_chunk_local = recording, counting
+    # the card's torch (2.11) has no DTensor strategy for flip, which
+    # cumsum's backward reaches: neither has this run
+    with without_flip_strategy():
+        for arch in family_archs(name):
+            _family_cells(arch, mesh, out, got, recorded, local_calls)
     np.savez(f"{out}/rank{rank}.npz", **got)
     Path(f"{out}/rank{rank}.json").write_text(
         json.dumps({"coord": mesh.get_coordinate()}))

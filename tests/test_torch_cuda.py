@@ -21,7 +21,9 @@ card, and the CIM macro mesh over ``[cuda:0] * 8``: the sharded forward
 against the single-device plan, the oracle and the CPU mesh, and
 ``train_plan`` over the mesh against no mesh; and the LM cells of
 ``launch.shapes.build_cell`` on ``DTensor``s over a (1, 1) CUDA
-``DeviceMesh`` of a world-1 NCCL group against plain tensors.  Marked
+``DeviceMesh`` of a world-1 NCCL group against plain tensors, for all
+ten LM configs (mamba2's prefill launching ``ssd_chunk`` on the local
+shards).  Marked
 ``cuda``: without a CUDA device each test skips.  On the card:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
@@ -1105,28 +1107,42 @@ def nccl_world_1(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["stablelm_1_6b", "qwen1_5_32b",
-                                  "mixtral_8x7b"])
+                                  "deepseek_67b", "mistral_large_123b",
+                                  "internvl2_26b", "mixtral_8x7b",
+                                  "deepseek_v2_lite_16b",
+                                  "recurrentgemma_9b", "whisper_base",
+                                  "mamba2_130m"])
 def test_dtensor_cells_on_the_card(nccl_world_1, arch):
     """build_cell's train and prefill cells on a (1, 1) ("data",
     "model") CUDA DeviceMesh, params, Adam state and batch as DTensors,
-    against the same cells on plain tensors (the host mesh): the loss,
-    gradient norm, every new param and moment, the next tokens and the
-    cache within 1e-6 relative; nothing falls back to the CPU."""
+    against the same cells on plain tensors (the host mesh), for every
+    LM config at its smoke size: the loss, gradient norm, every new param
+    and moment, the next tokens and the cache within 1e-6 relative;
+    nothing falls back to the CPU.  mamba2's prefill launches
+    ``ssd_chunk``'s kernel on the DTensors' local shards as often as on
+    plain tensors (once a block); no other cell launches it."""
     from torch.distributed.tensor import DTensor
     from repro_torch.checkpoint.store import _flatten
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_chunk as sc
     from repro_torch.launch import mesh as meshlib
     from repro_torch.launch import shapes
     cfg = get_config(arch, smoke=True)
+    ssd_blocks = sum(st.n_units * sum(sp.mixer == "ssd" for sp in st.unit)
+                     for st in cfg.stages)
     mesh = meshlib._device_mesh((1, 1), ("data", "model"), "cuda")
     host = meshlib.make_host_mesh()
     for mode, seq in (("train", 16), ("prefill", 16)):
         spec = shapes.ShapeSpec(f"smoke_{mode}", seq, 2, mode)
-        outs = []
+        outs, launches = [], []
         for m in (mesh, host):
             fn, args, ins, _ = shapes.build_cell(cfg, spec, m)
-            outs.append(_flatten(fn(*shapes.materialize(cfg, spec, args,
-                                                        ins))))
+            real = shapes.materialize(cfg, spec, args, ins)
+            sc.reset_counts()
+            outs.append(_flatten(fn(*real)))
+            launches.append(sc.ssd_chunk_cuda.launches)
+        want = ssd_blocks if mode == "prefill" else 0
+        assert launches == [want, want], (mode, launches)
         assert len(outs[0]) == len(outs[1])
         for (key, a), (_, b) in zip(*outs):
             assert isinstance(a, DTensor) and a.device.type == "cuda", key

@@ -239,3 +239,41 @@ def test_prefill_matches_jax_sharded_and_one_device(run, arch):
         for key in _leaf_keys(ref, f"{arch}/out/cache"):
             _close(rank[f"{key}@{_coord(meta)}"],
                    ref[f"{key}@{_coord(meta)}"], CACHE_RTOL, key)
+
+
+def test_ssd_prefill_runs_the_local_shard_route(run):
+    """mamba2's prefill on the (2, 2) mesh sends each of its SSD blocks'
+    chunks through ``ssd_chunk``'s local-shard route on every rank (the
+    smoke config's 3 blocks); no other family reaches it."""
+    _, ranks, _ = run
+    for arch in ARCHS:
+        for got, _ in ranks[arch]:
+            calls = got[f"{arch}/ssd/calls"].tolist()
+            blocks = 3 if arch == "mamba2_130m" else 0
+            assert calls == [blocks, blocks], (arch, calls)
+
+
+#: the placements the local-shard route runs each case on (x, dt and the
+#: states; ``local_placements``): the batch split over "data" kept, the
+#: heads over "model" kept where each rank reads one group, and the
+#: straddling, uneven and partial cases redistributed first
+SSD_RAN = {"as_placed": "[Shard(dim=0), Replicate()]",
+           "heads_over_model": "[Shard(dim=0), Shard(dim=2)]",
+           "straddling": "[Shard(dim=0), Replicate()]",
+           "uneven": "[Replicate(), Shard(dim=2)]",
+           "partial": "[Replicate(), Shard(dim=2)]"}
+
+
+@pytest.mark.parametrize("case", LM.SSD_CASES)
+def test_ssd_local_shards_match_dtensor_ops(run, case):
+    """On every rank, ``ssd_chunk``'s local-shard route (each rank's
+    shards through the plain version, wrapped back) against
+    ``ssd_chunk_plain``'s DTensor ops on the same DTensors: y and the
+    chunk states within ``SSD_RTOL`` of their max (bitwise, as it runs
+    here), on the route's placements (``SSD_RAN``)."""
+    _, ranks, _ = run
+    for got, meta in ranks["mamba2_130m"]:
+        gap, bitwise = got[f"mamba2_130m/ssd/{case}/gap"].tolist()
+        assert gap <= LM.SSD_RTOL and bitwise, (case, meta, gap)
+        assert got[f"mamba2_130m/ssd/{case}/placements"].tolist() == \
+            [SSD_RAN[case]], case

@@ -358,3 +358,144 @@ def test_vector_staging():
     odd = torch.zeros(2, 64, 1, 24 + 1, dtype=torch.bfloat16)[..., 1:]
     assert not sc.vector_staging(x, odd, b)
     assert not sc.vector_staging(x[..., :60], b, b)
+
+
+def test_kernel_entries_refuse_tensors_without_storage():
+    """``_build.ptr`` (every kernel entry's operands) and the three
+    ``vector_staging`` probes refuse, naming the operand, a ``meta``
+    tensor (address 0) and a ``DTensor`` (a wrapper without storage of
+    its own, ``data_ptr()`` 0); an empty tensor and a CPU tensor pass."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import tetris_matmul as tm
+    from repro_torch.launch import dryrun
+    meta = torch.empty(4, 8, device="meta")
+    with pytest.raises(TypeError, match="x .*no storage"):
+        _build.ptr(meta, "x")
+    assert _build.ptr(torch.empty(0, device="meta"), "e").value is None
+    cpu = torch.ones(3)
+    assert _build.ptr(cpu, "w").value == cpu.data_ptr()
+    with dryrun.fake_group(1):
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data",
+                                                               "model"))
+        wrapped = DTensor.from_local(cpu, mesh, [Replicate()] * 2)
+        assert wrapped.data_ptr() == 0
+        with pytest.raises(TypeError, match="q is a DTensor"):
+            _build.ptr(wrapped, "q")
+        for probe in (tm.vector_staging, fa.vector_staging,
+                      sc.vector_staging):
+            with pytest.raises(TypeError, match="operand 1 is a DTensor"):
+                probe(cpu, wrapped)
+    for probe in (tm.vector_staging, fa.vector_staging, sc.vector_staging):
+        with pytest.raises(TypeError, match="operand 0 .*no storage"):
+            probe(meta)
+
+
+def _dtensors(mesh, args, placements):
+    """``args`` (x, dt, a_log, b, c) as DTensors on a world-1 mesh, x and
+    dt by ``placements``, the rest replicated."""
+    from torch.distributed.tensor import DTensor, Replicate
+    rep = [Replicate()] * mesh.ndim
+    return tuple(DTensor.from_local(a, mesh, placements if i < 2 else rep)
+                 for i, a in enumerate(args))
+
+
+@pytest.mark.parametrize("placements", ["S0,S2", "R,R"])
+def test_ssd_chunk_on_dtensors_runs_on_local_shards(placements,
+                                                    monkeypatch):
+    """On a world-1 CPU mesh (a fake group) ``ssd_chunk`` on DTensors runs
+    the local-shard route, the plain version on each rank's shards,
+    bitwise the plain version on plain tensors, y on x's placements and
+    the states on the same splits; on ``meta`` DTensors (the dry run) it
+    keeps the plain version's DTensor ops and never reaches the route."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import sharding as sh
+    pl = {"S0,S2": [Shard(0), Shard(2)], "R,R": [Replicate()] * 2}[
+        placements]
+    args = [torch.tensor(a) for a in _inputs(np.random.RandomState(0),
+                                             2, 64, 4, 16, 2, 8)]
+    y0, s0 = sc.ssd_chunk_plain(*args, chunk=32)
+    calls = []
+    route = sc.ssd_chunk_local
+    monkeypatch.setattr(sc, "ssd_chunk_local",
+                        lambda *a, **k: calls.append(1) or route(*a, **k))
+    with dryrun.fake_group(1):
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data",
+                                                               "model"))
+        y, s = sc.ssd_chunk(*_dtensors(mesh, args, pl), chunk=32)
+        assert calls == [1]
+        assert isinstance(y, DTensor) and list(y.placements) == pl
+        assert list(s.placements) == pl and s.shape == s0.shape
+        assert torch.equal(y.to_local(), y0) and torch.equal(s.to_local(), s0)
+        metas = [a.to("meta") for a in args]
+        with sh.spmd(mesh):
+            ym, sm = sc.ssd_chunk(*_dtensors(mesh, metas, pl), chunk=32)
+        assert calls == [1]
+        assert ym.device.type == "meta" and ym.shape == y0.shape
+        assert sm.shape == s0.shape
+
+
+@pytest.mark.parametrize("given, mesh_shape, shape, want", [
+    # batch over "data", heads over "model": kept (one group, 2 heads a
+    # rank; then whole groups)
+    ("S0,S2", (2, 2), (4, 24, 1), "S0,S2"),
+    ("S0,S2", (2, 2), (4, 24, 12), "S0,S2"),
+    # heads straddle a group (6 heads in 3 groups, 3 a rank): gathered
+    ("S0,S2", (2, 2), (4, 6, 3), "S0,R"),
+    # uneven batch (3 over 2), uneven heads (6 over 4): gathered
+    ("S0,S2", (2, 2), (3, 8, 1), "R,S2"),
+    ("S2,S2", (2, 2), (4, 6, 1), "R,R"),
+    ("S2,S2", (2, 2), (4, 8, 1), "S2,S2"),
+    # a Partial, a sequence split and a split of P: made whole
+    ("P,S2", (2, 2), (4, 8, 1), "R,S2"),
+    ("S1,S0", (2, 2), (4, 8, 1), "R,S0"),
+    ("S3,R", (2, 2), (4, 8, 1), "R,R"),
+])
+def test_local_placements(given, mesh_shape, shape, want):
+    """What the local-shard route keeps of x's placements: even splits of
+    the batch and of the heads (whole groups, or one group a rank)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    names = {"S0": Shard(0), "S1": Shard(1), "S2": Shard(2),
+             "S3": Shard(3), "R": Replicate(), "P": Partial()}
+    batch, heads, groups = shape
+    got = sc.local_placements([names[n] for n in given.split(",")],
+                              mesh_shape, batch, heads, groups)
+    assert got == [names[n] for n in want.split(",")]
+
+
+def test_mamba2_train_cell_on_a_mesh_without_dtensor_flip():
+    """mamba2's train cell (smoke, 2 units) on DTensors over a world-1
+    CPU mesh (a fake group) runs where DTensor has no strategy for
+    ``aten.flip`` (the card's torch 2.11, which refused cumsum's backward
+    there), through ``ssd_chunk.cumsum``'s local backward, and equals the
+    cell on plain tensors bitwise: the loss, the gradient norm and every
+    new param and moment."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Shard
+    from _torch_lm_mesh import without_flip_strategy
+    from repro_torch.checkpoint.store import _flatten
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, shapes
+    from repro_torch.launch import mesh as meshlib
+    cfg = get_config("mamba2_130m", smoke=True)
+    spec = shapes.ShapeSpec("smoke_train", 32, 2, "train")
+    outs = []
+    with dryrun.fake_group(1), without_flip_strategy():
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        x = DTensor.from_local(torch.ones(2, 3), mesh, [Shard(0)] * 2)
+        with pytest.raises(NotImplementedError, match="flip"):
+            x.flip(1)
+        for m in (mesh, meshlib.make_host_mesh("cpu")):
+            fn, args, ins, _ = shapes.build_cell(cfg, spec, m,
+                                                 microbatches=1)
+            outs.append(_flatten(fn(*shapes.materialize(cfg, spec, args,
+                                                        ins))))
+    assert [k for k, _ in outs[0]] == [k for k, _ in outs[1]]
+    for (key, a), (_, b) in zip(*outs):
+        assert isinstance(a, DTensor), key
+        assert torch.equal(a.to_local(), b), key
