@@ -47,9 +47,9 @@ Phases, each of which raises on failure (exit code != 0):
    ``gemm_launch_dims``'s, and a forward must match ``execute_oracle``
    (plain functions only); one forward under ``torch.profiler`` gives
    its device time beside the serving loop's wall time (the busy share)
-   and attention's share of it, and one more
-   (with Python frames) the device time of the matmul executor's layout
-   copies;
+   and attention's share of it (the matmul executor's layout copies are
+   ``portbench.attribution``'s ``layout_ms.tokens``, read from the
+   program's own spans);
 9. transformer kernel times: device time with the stream held, per-call
    time, the plain version's, the bound and the library call's
    (``torch.matmul``, ``torch.bmm``, ``F.scaled_dot_product_attention``,
@@ -806,7 +806,6 @@ def serve_transformer(net, inputs, batch: int, dev, card: str) -> dict:
           f"{stats.tokens_per_s:.1f} tokens/s on {card}")
     profile_call(f"{name} one forward", lambda: execute_plan(plan, ks, xs),
                  stats.s_per_batch * 1e3, "flash_attention")
-    executor_copies(name, lambda: execute_plan(plan, ks, xs))
     return launches, got
 
 
@@ -823,61 +822,6 @@ def gemm_blocks_per_forward(plan, batch: int) -> tuple:
         blocks["grouped_matmul" if g > 1 else "tetris_matmul"] += d.blocks
         tiles[gmn] = f"{d.bm}x{d.bn}"
     return blocks, tiles
-
-
-@contextlib.contextmanager
-def labelled_matmul_executor():
-    """Within the block, each ``matmul_exec.matmul_layer`` call of the
-    plan runs in a ``record_function`` range ``matmul_layer``, and its
-    call of the matmul kernel's wrapper in a range ``matmul_kernel``."""
-    import torch
-    from repro_torch.exec import run
-    from repro_torch.kernels import matmul_exec as me
-    saved = (run.matmul_layer, me.grouped_matmul, me.tetris_matmul)
-
-    def label(name, fn):
-        def labelled(*args, **kwargs):
-            with torch.profiler.record_function(name):
-                return fn(*args, **kwargs)
-        return labelled
-    run.matmul_layer = label("matmul_layer", saved[0])
-    me.grouped_matmul = label("matmul_kernel", saved[1])
-    me.tetris_matmul = label("matmul_kernel", saved[2])
-    try:
-        yield
-    finally:
-        run.matmul_layer, me.grouped_matmul, me.tetris_matmul = saved
-
-
-def executor_copies(label: str, fn) -> None:
-    """One ``fn()`` under ``torch.profiler`` with the matmul executor
-    labelled: the device time spent in ``matmul_layer`` outside its call
-    of the kernel's wrapper — the executor's permute/reshape copies —
-    against the forward's device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    with labelled_matmul_executor(), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    cpu = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CPU]
-    layers = [e for e in cpu if e.name == "matmul_layer"]
-    copies_us = (sum(e.device_time_total for e in layers)
-                 - sum(e.device_time_total for e in cpu
-                       if e.name == "matmul_kernel"))
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.key not in ("matmul_layer", "matmul_kernel"))
-    if not layers or total_us == 0:
-        print(f"[profile] {label}: matmul executor copies not measured "
-              f"({len(layers)} matmul_layer ranges, {total_us:.1f} us of "
-              f"device time)")
-        return
-    print(f"[profile] {label} one forward: the matmul executor's layout "
-          f"copies take {copies_us / 1e3:.4f} ms of device time over "
-          f"{len(layers)} matmul_layer calls ({100 * copies_us / total_us:.1f}"
-          f" % of the forward's {total_us / 1e3:.4f} ms)")
 
 
 def time_transformer_kernels(shapes, dev, card: str) -> dict:

@@ -4,7 +4,9 @@ PyTorch runs eagerly, so the forward is a Python loop over the planned
 layers: each layer's glue is replayed around its planned executor —
 spatial fit, the ``save`` stack, ``pre`` layernorm, the layer, its
 ``act``, the ``post`` attention stage, then the carry rule (chain,
-concat, residual add).
+concat, residual add).  While `repro_torch.tracing` records, the
+forward, each layer, its executor call, its attention stage and each
+glue stage are spans.
 The JAX package's whole-forward ``jax.jit`` program and its lookahead
 ``_fence`` barrier (which only shaped XLA's schedule inside that
 program) have no counterpart here; ``NetworkPlan.lookahead`` stays in
@@ -36,6 +38,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import tracing
 from ..cnn.cim_conv import cim_conv2d, reference_conv2d
 from ..cnn.mapped_net import mapped_conv2d
 from ..kernels.matmul_exec import matmul_layer, matmul_layer_ref
@@ -88,27 +91,46 @@ def _segment(plan: NetworkPlan, s: int, e: int, activation, conv: ConvFn,
     # inferred-glue (CNN) plans, where no GlueSpec.act is ever set
     explicit = plan.net.glue is not None
     saved = []                      # GlueSpec.save stack (residual bases)
+    begin, end = tracing.begin, tracing.end
     for i, (lp, k) in enumerate(zip(plan.layers[s:e], kernels), s):
         lay = lp.mapping.layer
         spec = lp.glue
+        span = begin("layer", lay.name, lp.executor)
+        stage = begin("glue", "fit")
         xp = fit_spatial(x, lay.i_h, lay.i_w)
+        end(stage)
         if spec.save:               # residual base: the pre-norm input
             saved.append(xp)
-        xin = layernorm(xp) if spec.pre == "layernorm" else xp
+        xin = xp
+        if spec.pre == "layernorm":
+            stage = begin("glue", "layernorm")
+            xin = layernorm(xp)
+            end(stage)
+        stage = begin("exec", lp.executor)
         y = conv(lp, xin, k, None if consts is None else consts[i])
-        if spec.act != "none":
-            y = ACTIVATIONS[spec.act](y)
-        elif activation is not None and not explicit:
-            y = activation(y)
+        end(stage)
+        act = (ACTIVATIONS[spec.act] if spec.act != "none"
+               else None if explicit else activation)
+        if act is not None:
+            stage = begin("glue", "act")
+            y = act(y)
+            end(stage)
         if spec.post == "attention":
+            stage = begin("attention", "attention")
             y = attention_stage(y, spec.heads, spec.causal, plain=plain)
+            end(stage)
         if spec.kind == "concat":
+            stage = begin("glue", "carry")
             skip = center_crop(xp, y.shape[-2], y.shape[-1])
             x = torch.cat([skip, y], dim=1)
+            end(stage)
         elif spec.kind == "residual":
+            stage = begin("glue", "carry")
             x = saved.pop() + y     # channel match checked at compile
+            end(stage)
         else:                       # "chain" / "last"
             x = y
+        end(span)
     return x
 
 
@@ -121,15 +143,19 @@ def _forward(plan: NetworkPlan, kernels: Sequence[torch.Tensor],
     records; otherwise the whole chain runs as one segment.  ``plain``
     runs the attention stage on its plain softmax version (the
     oracle)."""
-    spans = plan.spans
-    if not (remat and len(spans) > 1 and torch.is_grad_enabled()):
-        return _segment(plan, 0, len(plan.layers), activation, conv, plain,
-                        consts, x, *kernels)
-    for s, e in spans:
-        body = functools.partial(_segment, plan, s, e, activation, conv,
-                                 plain, consts)
-        x = checkpoint(body, x, *kernels[s:e], use_reentrant=False)
-    return x
+    opened = tracing.begin("forward", plan.net.name)
+    try:
+        spans = plan.spans
+        if not (remat and len(spans) > 1 and torch.is_grad_enabled()):
+            return _segment(plan, 0, len(plan.layers), activation, conv,
+                            plain, consts, x, *kernels)
+        for s, e in spans:
+            body = functools.partial(_segment, plan, s, e, activation, conv,
+                                     plain, consts)
+            x = checkpoint(body, x, *kernels[s:e], use_reentrant=False)
+        return x
+    finally:
+        tracing.end(opened)
 
 
 def donation_supported(mesh=None) -> bool:

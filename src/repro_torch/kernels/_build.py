@@ -38,6 +38,8 @@ from typing import Dict, Sequence
 import torch
 from torch.utils._python_dispatch import is_traceable_wrapper_subclass
 
+from .. import tracing
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -202,10 +204,14 @@ def ptr(t: torch.Tensor, name: str) -> ctypes.c_void_p:
 
 def launch(fn, device: torch.device, *args) -> None:
     """Call the C entry point ``fn(*args, stream)`` with ``device``
-    current and its current stream; raise on the CUDA error it returns."""
+    current and its current stream; raise on the CUDA error it returns.
+    The call is a ``kernel`` span of `repro_torch.tracing`, named by the
+    entry point, while its recorder is on."""
+    span = tracing.begin("kernel", fn.__name__)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, ctypes.c_void_p(stream))
+    tracing.end(span)
     if err != 0:
         raise RuntimeError(f"{fn.__name__}: CUDA error {err} at launch")
 
