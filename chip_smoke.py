@@ -14,11 +14,17 @@ Phases, each of which raises on failure (exit code != 0):
    layer at batch 8, with launched steps held to ``mapping.cycles``, the
    blocks the whole kernel's C entry reports held to
    ``whole_launch_dims``, and each kernel's launch layout (images, run,
-   columns, blocks) per tile printed;
+   columns, blocks) per tile printed; the placed kernel (``sdk_placed``)
+   against ``cim_conv2d`` on CNN8-2 and on densenet40's reference layer
+   of several tiles with the most channel passes, its steps held to
+   ``mapping.cycles`` and its launches to ``placed_layer``'s, each
+   launch's layout printed;
 4. main path — ``repro_torch.launch.serve_cnn.main`` serves cnn8 with the
    ``auto`` policy; the plan must be reference + five sdk layers, the
-   whole kernel's launch count must grow by (warmup + steps) x its
-   launches per forward and its blocks by as many times
+   whole and placed kernels' launch counts must grow by (warmup + steps)
+   x their launches per forward (the placed one's from
+   ``launches_per_forward``, with no reference layer run through
+   ``cim_conv2d``), the whole kernel's blocks by as many times
    ``whole_launch_dims``'s, and a forward must match ``execute_oracle``;
    one forward under ``torch.profiler`` gives the device's busy share;
 5. window path — the cnn8 forward with ``block="window"`` and the
@@ -28,7 +34,8 @@ Phases, each of which raises on failure (exit code != 0):
 6. sdk times: the whole kernel, the window kernel forced and
    ``F.conv2d`` in interleaved rounds (medians) on cnn8's five sdk
    layers (the main path's shapes, summed), DN40-b2l3, Incep-3b and the
-   stride-2 layer at batch 8;
+   stride-2 layer at batch 8; the placed kernel and ``F.conv2d`` so on
+   CNN8-2, with ``cim_conv2d``'s per-call time;
 7. transformer kernels vs plain — tetris_matmul, grouped_matmul and
    flash_attention against their plain versions at the shapes of the
    transformer path and at ragged tails, causal or not, with a
@@ -564,6 +571,27 @@ def sdk_times(m, rng, dev) -> dict:
     return t
 
 
+def placed_times(m, rng, dev) -> dict:
+    """One reference layer at BATCH: the placed kernel and F.conv2d
+    interleaved (device time), the kernel's per-call time and its plain
+    version's (``cim_conv2d``)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.cnn.cim_conv import cim_conv2d
+    from repro_torch.kernels import sdk_conv as sk
+    x, k = layer_data(m, rng, dev)
+    w_oihw = k.permute(3, 2, 0, 1).contiguous()
+    runs = {"placed": lambda: sk.sdk_placed(m, x, k),
+            "library": lambda: F.conv2d(x, w_oihw, stride=m.layer.stride,
+                                        groups=m.group)}
+    t = interleaved_ms(runs, max(8, 200 // len(sk.placed_layer(m).launches)),
+                       ROUNDS)
+    t["placed_call"] = call_ms(runs["placed"], iters=200)
+    t["plain"] = call_ms(lambda: cim_conv2d(m, x, k), iters=20)
+    torch.cuda.synchronize()
+    return t
+
+
 def max_err(y, ref) -> tuple:
     scale = float(ref.abs().max())
     err = float((y - ref).abs().max())
@@ -737,6 +765,7 @@ def launch_counts() -> dict:
             "flash_attention": fa.flash_attention_cuda.launches,
             "sdk_whole": sk.sdk_whole.launches,
             "sdk_window": sk.sdk_window.launches,
+            "sdk_placed": sk.sdk_placed.launches,
             "ssd_chunk": sc.ssd_chunk_cuda.launches,
             "im2win_conv": iw.im2win_conv_cuda.launches}
 
@@ -1835,7 +1864,7 @@ FLEET_MAX_BATCH, FLEET_REQUESTS, FLEET_RATE, FLEET_SLO_MS = 4, 48, 200.0, 50.0
 REPLICA_ARGS = ["--net", "cnn8", "--replicas", "2", "--max-batch", "4",
                 "--max-delay-ms", "2", "--requests", "48", "--policy",
                 "auto", "--warmup", "1", "--seed", str(SEED)]
-SERVED_KERNELS = ("sdk_whole", "sdk_window", "tetris_matmul",
+SERVED_KERNELS = ("sdk_whole", "sdk_window", "sdk_placed", "tetris_matmul",
                   "grouped_matmul", "flash_attention")
 
 
@@ -4224,8 +4253,10 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
 
     import numpy as np
+    from repro_torch.cnn.cim_conv import cim_conv2d
     from repro_torch.core import ArrayConfig, ConvLayerSpec, map_layer
     from repro_torch.exec import compile_plan, execute_oracle, execute_plan
+    from repro_torch.exec.plan import _auto_executor
     from repro_torch.kernels import _build
     from repro_torch.kernels import sdk_conv as sk
     from repro_torch.launch import serve_cnn
@@ -4292,6 +4323,36 @@ def main() -> int:
                                      f"plain, steps vs cycles or blocks vs "
                                      f"whole_launch_dims failed")
             errors[mode] = max(errors[mode], err)
+    # the reference executor's card path: CNN8-2 (the main path's
+    # reference layer) and densenet40's reference layer of several tiles
+    # with the most channel passes
+    dn40_ref = max((m for m in dn40.layers
+                    if _auto_executor(m, backend="cuda") == "reference"
+                    and len(m.tiles) > 1),
+                   key=lambda m: max(m.tile_passes(t)[1] for t in m.tiles))
+    errors["placed"] = 0.0
+    for m in (cnn8.layers[0], dn40_ref):
+        x, k = layer_data(m, rng, dev)
+        ref = cim_conv2d(m, x, k)
+        placed = sk.placed_layer(m)
+        sk.reset_counts()
+        y = sk.sdk_placed(m, x, k)
+        torch.cuda.synchronize()
+        err, rel, scale = max_err(y, ref)
+        ok = (rel <= KERNEL_RTOL and sk.sdk_placed.steps == m.cycles
+              and sk.sdk_placed.launches == len(placed.launches))
+        dims = " (b_chunk, run, oc_b, blocks) " + " ".join(
+            str(sdk_layout("window", ln.geom)) for ln in placed.launches)
+        print(f"[kernel] {m.layer.name:10s} placed tiles={len(m.tiles)} "
+              f"G={m.group} launches={sk.sdk_placed.launches} steps="
+              f"{sk.sdk_placed.steps} cycles={m.cycles} max_abs_err={err:.3e}"
+              f" rel={rel:.3e} (tol {KERNEL_RTOL:g} of max|y|={scale:.3f}, "
+              f"vs cim_conv2d) {'ok' if ok else 'FAIL'}{dims}")
+        if not ok:
+            raise AssertionError(f"{m.layer.name} placed: kernel vs "
+                                 f"cim_conv2d, steps vs cycles or launches "
+                                 f"vs placed_layer failed")
+        errors["placed"] = max(errors["placed"], err)
 
     # -- 4. main path: serve cnn8 through the compiled plan ----------------
     sk.reset_counts()
@@ -4299,12 +4360,17 @@ def main() -> int:
                             str(BATCH), "--steps", str(STEPS), "--warmup",
                             str(WARMUP), "--seed", str(SEED)])
     main_launches = {"whole": sk.sdk_whole.launches,
-                     "window": sk.sdk_window.launches}
+                     "window": sk.sdk_window.launches,
+                     "placed": sk.sdk_placed.launches}
+    if sk.sdk_placed.fallbacks:
+        raise AssertionError(f"the serving path ran {sk.sdk_placed.fallbacks}"
+                             f" reference layers through cim_conv2d")
     plan = stats.plan
     if plan.executors != ("reference", "sdk", "sdk", "sdk", "sdk", "sdk"):
         raise AssertionError(f"cnn8 plan executors {plan.executors}")
     main_blocks = sk.sdk_whole.blocks
-    per_fwd = {"whole": 0, "window": 0}
+    per_fwd = {"whole": 0, "window": 0,
+               "placed": plan.launches_per_forward()["sdk_placed"]}
     blocks_per_fwd = 0
     for lp in plan.layers:
         if lp.executor == "sdk":
@@ -4329,9 +4395,9 @@ def main() -> int:
     if main_blocks != forwards * blocks_per_fwd:
         raise AssertionError("the served sdk_whole launches ran other blocks "
                              "than whole_launch_dims gives")
-    if main_launches["whole"] == 0:
+    if main_launches["whole"] == 0 or main_launches["placed"] == 0:
         raise AssertionError("the serving path never launched the whole "
-                             "kernel")
+                             "or the placed kernel")
     ks, xh = serve_cnn.serving_inputs(cnn8, BATCH, SEED, dev)
     xs = torch.as_tensor(xh, device=dev)
     y = execute_plan(plan, ks, xs)
@@ -4339,9 +4405,10 @@ def main() -> int:
     torch.cuda.synchronize()
     err, rel, scale = max_err(y, r)
     print(f"[main] plan={plan.executors} launches whole="
-          f"{main_launches['whole']} window={main_launches['window']} over "
-          f"{forwards} forwards (per forward whole={per_fwd['whole']} "
-          f"window={per_fwd['window']}); forward vs oracle max_abs_err="
+          f"{main_launches['whole']} window={main_launches['window']} "
+          f"placed={main_launches['placed']} over {forwards} forwards (per "
+          f"forward whole={per_fwd['whole']} window={per_fwd['window']} "
+          f"placed={per_fwd['placed']}); forward vs oracle max_abs_err="
           f"{err:.3e} rel={rel:.3e} (tol {FORWARD_RTOL:g} of "
           f"max|y|={scale:.3f})")
     if not (torch.isfinite(y).all() and rel <= FORWARD_RTOL
@@ -4432,6 +4499,30 @@ def main() -> int:
                       "interleaved rounds; call_ms, plain_ms: per call incl."
                       " host"})
     rows[0]["blocks"] = main_blocks          # on the served path
+    ref_layer = plan.layers[0].mapping                  # CNN8-2
+    t = placed_times(ref_layer, rng, dev)
+    t["bound"], placed_by = conv_bound_ms(ref_layer)
+    print(f"[time] {ref_layer.layer.name} batch {BATCH} "
+          f"({per_fwd['placed']} launches): device placed {t['placed']:.5f}"
+          f" ms, F.conv2d {t['library']:.5f} ms (medians of {ROUNDS} "
+          f"interleaved rounds); per call placed {t['placed_call']:.5f} ms,"
+          f" cim_conv2d {t['plain']:.5f} ms; bound {t['bound']:.6f} ms "
+          f"({placed_by}) on {card}")
+    rows.append({
+        "name": "sdk_placed", "route": "cuda",
+        "source": "src/repro_torch/csrc/sdk_conv.cu",
+        "replaces": "src/repro/cnn/cim_conv.py::cim_conv2d (jnp ops, no "
+                    "Pallas kernel)",
+        "launches": main_launches["placed"],
+        "path": "serve cnn8 --policy auto (CNN8-2 on reference)",
+        "max_abs_err": errors["placed"], "ms": t["placed"],
+        "call_ms": t["placed_call"], "plain_ms": t["plain"],
+        "bound_ms": t["bound"], "bound_by": placed_by,
+        "library_ms": t["library"],
+        "shapes": f"cnn8 CNN8-2 at batch {BATCH}",
+        "timing": "ms, library_ms: device time, stream held, median of "
+                  "interleaved rounds; call_ms, plain_ms (cim_conv2d): per "
+                  "call incl. host"})
     # -- 7-9. the transformer path ---------------------------------------
     rows += transformer_phases(dev, card)
     # -- 10-13. ssd_chunk, im2win_conv, the mamba2-130m path, ops -------

@@ -57,6 +57,24 @@
 //                      semaphores); window_launch_dims takes runs only
 //                      past two waves of blocks.
 //
+// A third kernel runs the same body on a mapping's window list instead of
+// the raster (the `reference` executor's layers, whose Alg 4 marginal
+// windows the raster cannot express):
+//
+//   sdk_placed_kernel  one launch per (tile, window shape) of
+//                      cnn/cim_conv.py::placement_groups, every group of
+//                      the layer in its grid; the origins come from a
+//                      device table, x and the kernel are read at the
+//                      group's and the tile's channel offsets, the tile's
+//                      channel passes are one contraction of a block
+//                      (ic_t = the tile's kept channels), and the block
+//                      stores into the (b, oc, o_h, o_w) output at the
+//                      group's channels.  Windows of one launch that
+//                      overlap store equal bits, as above; across shapes
+//                      the launches run in placement order, so the last
+//                      shape that writes a position wins, the writer
+//                      cim_conv.py::kept_writes keeps.
+//
 // wgmma, TMA and bf16 are later work.
 
 #include <cuda_runtime.h>
@@ -86,6 +104,56 @@ __device__ __forceinline__ void window_origin(const SdkGeom& g, int wi,
   *y0 = min((wi / g.nx) * g.step_y, g.lim_y);
   *x0 = min((wi % g.nx) * g.step_x, g.lim_x);
 }
+
+// Where a block's windows and input channels come from: the template
+// parameter of window_block, so that each kernel compiles to the code of
+// its own source alone.
+//
+// RasterWindows: sdk_whole / sdk_window, the ceil-form raster; channel
+// pass ci reads channels ci*ic_t.. of x (ic_pad channels) and rows
+// ci*ic_t.. of w (ic_pad rows).
+struct RasterWindows {
+  __device__ __forceinline__ void origin(const SdkGeom& g, int wi, int* y0,
+                                         int* x0) const {
+    window_origin(g, wi, y0, x0);
+  }
+  __device__ __forceinline__ size_t x_channel(const SdkGeom& g, int ci,
+                                              int) const {
+    return (size_t)ci * g.ic_t;
+  }
+  __device__ __forceinline__ size_t w_row(const SdkGeom& g, int ci) const {
+    return (size_t)ci * g.ic_t;
+  }
+  __device__ __forceinline__ int w_rows(const SdkGeom& g) const {
+    return g.ic_pad;
+  }
+};
+
+// PlacedWindows: sdk_placed, a table of (y, x) origins.  Its oc pass oi
+// is the group: x holds all groups' channels (ic_pad = ic), the group's
+// from oi * ic_g on; w is the grouped (k_h, k_w, ic_g, oc) kernel, whose
+// oc_pad = oc columns are the groups' oc_t = oc / G each.  The tile
+// starts at channel c_base of its group.
+struct PlacedWindows {
+  const int* yx;                  // (nw, 2) origins (y, x)
+  int ic_g;                       // input channels a group: ic / G
+  int c_base;                     // the tile's first channel in a group
+  __device__ __forceinline__ void origin(const SdkGeom&, int wi, int* y0,
+                                         int* x0) const {
+    *y0 = __ldg(yx + 2 * wi);
+    *x0 = __ldg(yx + 2 * wi + 1);
+  }
+  __device__ __forceinline__ int x_channel(const SdkGeom& g, int ci,
+                                           int oi) const {
+    return oi * ic_g + c_base + ci * g.ic_t;
+  }
+  __device__ __forceinline__ int w_row(const SdkGeom& g, int ci) const {
+    return c_base + ci * g.ic_t;
+  }
+  __device__ __forceinline__ int w_rows(const SdkGeom&) const {
+    return ic_g;
+  }
+};
 
 // Offset of output element (ci, bi, oi*oc_t + o, y0/s + qy, x0/s + qx).
 __device__ __forceinline__ size_t out_offset(const SdkGeom& g, int ci,
@@ -127,14 +195,16 @@ struct WinDivs {
 
 // Issue the asynchronous copy of window wi's patch into `slot`: x is read
 // along rows (coalesced), the slot holds channels fastest.
+template <class Windows>
 __device__ __forceinline__ void stage_patch(const SdkGeom& g,
                                             const WinLayout& l,
                                             const WinDivs& dv,
+                                            const Windows& src,
                                             const float* __restrict__ x,
-                                            float* slot, int ci, int wi,
-                                            int b0, int nb) {
+                                            float* slot, int ci, int oi,
+                                            int wi, int b0, int nb) {
   int y0, x0;
-  window_origin(g, wi, &y0, &x0);
+  src.origin(g, wi, &y0, &x0);
   const int row = g.pw_w;
   const int img = g.ic_t * g.pw_h * g.pw_w;
   const size_t plane = (size_t)g.i_h * g.i_w;
@@ -142,29 +212,32 @@ __device__ __forceinline__ void stage_patch(const SdkGeom& g,
     const int r1 = dv.pw_w.div(e), xx = e - r1 * row;
     const int r2 = dv.pw_h.div(r1), yy = r1 - r2 * g.pw_h;
     const int bb = dv.ic_t.div(r2), c = r2 - bb * g.ic_t;
-    const float* src = x + ((size_t)(b0 + bb) * g.ic_pad
-                            + (size_t)ci * g.ic_t + c) * plane
-                       + (size_t)(y0 + yy) * g.i_w + (x0 + xx);
-    wp::cp_async4(slot + bb * l.img + (yy * row + xx) * l.pix + c, src);
+    const float* from = x + ((size_t)(b0 + bb) * g.ic_pad
+                             + src.x_channel(g, ci, oi) + c) * plane
+                        + (size_t)(y0 + yy) * g.i_w + (x0 + xx);
+    wp::cp_async4(slot + bb * l.img + (yy * row + xx) * l.pix + c, from);
   }
   wp::cp_async_commit();
 }
 
 // ---------------------------------------------------------------------------
-// The block body of both kernels: columns [part*oc_b, part*oc_b + oc_b) of
-// the oc_t columns of pass (ci, oi), for windows [w_begin, w_end) and the
-// images [b0, b0 + b_chunk).  It stages its kernel block (k_h*k_w x ic_t x
-// oc_b) in shared memory once, and each window's patch, b_chunk images of
-// (pw_h, pw_w, ic_t) channel fastest, with cp.async; with more than one
-// window the copy of window t+1 is in flight in a second slot while window
-// t is computed.  The product is window_product.cuh's; output tiles are
-// stored straight to device memory.
+// The block body of the three kernels: columns [part*oc_b, part*oc_b +
+// oc_b) of the oc_t columns of pass (ci, oi), for windows [w_begin, w_end)
+// and the images [b0, b0 + b_chunk).  It stages its kernel block (k_h*k_w
+// x ic_t x oc_b) in shared memory once, and each window's patch, b_chunk
+// images of (pw_h, pw_w, ic_t) channel fastest, with cp.async; with more
+// than one window the copy of window t+1 is in flight in a second slot
+// while window t is computed.  The product is window_product.cuh's; output
+// tiles are stored straight to device memory.  `src` says where the
+// windows' origins and the pass's channels are.
 // ---------------------------------------------------------------------------
+template <class Windows>
 __device__ __forceinline__ void window_block(const float* __restrict__ x,
                                              const float* __restrict__ w,
                                              float* __restrict__ out,
                                              const SdkGeom& g,
-                                             const WinDivs& dv, float* smem,
+                                             const WinDivs& dv,
+                                             const Windows& src, float* smem,
                                              int ci, int oi, int part,
                                              int w_begin, int w_end,
                                              int b0) {
@@ -183,8 +256,8 @@ __device__ __forceinline__ void window_block(const float* __restrict__ x,
 
   // the kernel block (copied with the first patch), zero past ic_t and
   // o_hi; 16-byte copies where the columns come in fours
-  const size_t w_col = (size_t)ci * g.ic_t * g.oc_pad + (size_t)oi * g.oc_t
-                       + o_lo;
+  const size_t w_col = (size_t)src.w_row(g, ci) * g.oc_pad
+                       + (size_t)oi * g.oc_t + o_lo;
   if (g.oc_t % 4 == 0 && g.oc_pad % 4 == 0) {
     const int ob4 = g.oc_b / 4;
     for (int e = tid; e < kk_n * l.cp * ob4; e += wp::kThreads) {
@@ -192,7 +265,7 @@ __device__ __forceinline__ void window_block(const float* __restrict__ x,
       const int kk = dv.cp.div(rest), c = rest - kk * l.cp;
       float* dst = ws + rest * g.oc_b + o;
       if (c < g.ic_t && o_lo + o < o_hi)
-        wp::cp_async16(dst, w + w_col + ((size_t)kk * g.ic_pad + c)
+        wp::cp_async16(dst, w + w_col + ((size_t)kk * src.w_rows(g) + c)
                                             * g.oc_pad + o);
       else
         *reinterpret_cast<float4*>(dst) = make_float4(0, 0, 0, 0);
@@ -202,13 +275,13 @@ __device__ __forceinline__ void window_block(const float* __restrict__ x,
       const int rest = dv.oc_b.div(e), o = e - rest * g.oc_b;
       const int kk = dv.cp.div(rest), c = rest - kk * l.cp;
       if (c < g.ic_t && o_lo + o < o_hi)
-        wp::cp_async4(ws + e, w + w_col + ((size_t)kk * g.ic_pad + c)
+        wp::cp_async4(ws + e, w + w_col + ((size_t)kk * src.w_rows(g) + c)
                                               * g.oc_pad + o);
       else
         ws[e] = 0.f;
     }
   }
-  stage_patch(g, l, dv, x, smem, ci, w_begin, b0, nb);     // prologue
+  stage_patch(g, l, dv, src, x, smem, ci, oi, w_begin, b0, nb);  // prologue
   // the channels past ic_t of every staged pixel are zero
   const int pad = l.cp - g.ic_t;
   if (pad > 0) {
@@ -224,8 +297,9 @@ __device__ __forceinline__ void window_block(const float* __restrict__ x,
     if (wi + 1 < w_end) {
       // the other slot was last read in the previous iteration, which
       // ended in __syncthreads(): it is free to overwrite
-      stage_patch(g, l, dv, x, smem + ((wi + 1 - w_begin) & 1) * l.slot, ci,
-                  wi + 1, b0, nb);
+      stage_patch(g, l, dv, src, x,
+                  smem + ((wi + 1 - w_begin) & 1) * l.slot, ci, oi, wi + 1,
+                  b0, nb);
       wp::cp_async_wait<1>();      // this window's group has landed
     } else {
       wp::cp_async_wait<0>();
@@ -233,7 +307,7 @@ __device__ __forceinline__ void window_block(const float* __restrict__ x,
     __syncthreads();
 
     int y0, x0;
-    window_origin(g, wi, &y0, &x0);
+    src.origin(g, wi, &y0, &x0);
     const int oy0 = y0 / g.s, ox0 = x0 / g.s;
     for (int p = 0; p < s.passes; ++p) {
       const int t = s.ks > 1 ? tid % s.nt : tid + p * wp::kThreads;
@@ -292,9 +366,9 @@ sdk_whole_kernel(const float* __restrict__ x, const float* __restrict__ w,
   extern __shared__ float4 smem4[];
   const int step = blockIdx.x;
   const int pass = step / g.nw, wi = step - pass * g.nw;
-  window_block(x, w, out, g, dv, reinterpret_cast<float*>(smem4),
-               pass / g.ac_c, pass % g.ac_c, blockIdx.y, wi, wi + 1,
-               blockIdx.z * g.b_chunk);
+  window_block(x, w, out, g, dv, RasterWindows(),
+               reinterpret_cast<float*>(smem4), pass / g.ac_c, pass % g.ac_c,
+               blockIdx.y, wi, wi + 1, blockIdx.z * g.b_chunk);
 }
 
 // ---------------------------------------------------------------------------
@@ -308,7 +382,27 @@ sdk_window_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int parts = (g.oc_t + g.oc_b - 1) / g.oc_b;
   const int pass = blockIdx.x / parts;
   const int w_begin = blockIdx.y * g.run;
-  window_block(x, w, out, g, dv, reinterpret_cast<float*>(smem4),
+  window_block(x, w, out, g, dv, RasterWindows(),
+               reinterpret_cast<float*>(smem4), pass / g.ac_c, pass % g.ac_c,
+               blockIdx.x % parts, w_begin, min(w_begin + g.run, g.nw),
+               blockIdx.z * g.b_chunk);
+}
+
+// ---------------------------------------------------------------------------
+// Placed kernel: the window kernel's grid over the windows of a table, one
+// (tile, window shape) of a mapping a launch, its oc passes the layer's
+// groups.  grid = (ac_c*parts, ceil(nw / run), ceil(b / b_chunk)) with
+// ar_c = 1.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(wp::kThreads)
+sdk_placed_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                  float* __restrict__ out, SdkGeom g, WinDivs dv,
+                  PlacedWindows src) {
+  extern __shared__ float4 smem4[];
+  const int parts = (g.oc_t + g.oc_b - 1) / g.oc_b;
+  const int pass = blockIdx.x / parts;
+  const int w_begin = blockIdx.y * g.run;
+  window_block(x, w, out, g, dv, src, reinterpret_cast<float*>(smem4),
                pass / g.ac_c, pass % g.ac_c, blockIdx.x % parts, w_begin,
                min(w_begin + g.run, g.nw), blockIdx.z * g.b_chunk);
 }
@@ -343,7 +437,7 @@ static cudaError_t allow_smem(const void* kernel, int smem) {
 // ---------------------------------------------------------------------------
 // C entry points (loaded with ctypes).  Each launches on `stream` and
 // returns cudaGetLastError(): a refused launch never runs, and only this
-// return value reports it.  Both return cudaErrorInvalidValue when
+// return value reports it.  Each returns cudaErrorInvalidValue when
 // (b_chunk, run, oc_b, ks) do not make a block that fits 227 KB of shared
 // memory; the whole kernel's layout must have run == 1.
 // ---------------------------------------------------------------------------
@@ -375,5 +469,25 @@ extern "C" int sdk_conv_window(const float* x, const float* w, float* out,
                   (g.b + g.b_chunk - 1) / g.b_chunk);
   sdk_window_kernel<<<grid, wp::kThreads, smem, (cudaStream_t)stream>>>(
       x, w, out, g, make_divs(g));
+  return (int)cudaGetLastError();
+}
+
+// One (tile, window shape) of a mapping: the nw origins at yx (device
+// memory, (y, x) pairs), x (b, ic_pad, i_h, i_w) read at channel
+// oi*ic_g + c_base + c of group oi, w (k_h, k_w, ic_g, oc_pad) at row
+// c_base + c, and out (b, oc_pad, o_h, o_w).
+extern "C" int sdk_conv_placed(const float* x, const float* w, float* out,
+                               const SdkGeom* geom, const int* yx, int ic_g,
+                               int c_base, void* stream) {
+  const SdkGeom g = *geom;
+  const int smem = block_smem(g, false);
+  if (smem < 0 || g.ar_c != 1) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem((const void*)sdk_placed_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(g.ac_c * ((g.oc_t + g.oc_b - 1) / g.oc_b),
+                  (g.nw + g.run - 1) / g.run,
+                  (g.b + g.b_chunk - 1) / g.b_chunk);
+  sdk_placed_kernel<<<grid, wp::kThreads, smem, (cudaStream_t)stream>>>(
+      x, w, out, g, make_divs(g), PlacedWindows{yx, ic_g, c_base});
   return (int)cudaGetLastError();
 }

@@ -136,12 +136,14 @@ class NetworkPlan:
         """The kernel launches one forward makes on the card, keyed by the
         wrapper that counts them: an sdk layer launches its tile's kernel
         (``sdk_whole`` or ``sdk_window``, as ``resolve_block`` picks at the
-        plan's batch) once per tile and group, a matmul layer one matmul
-        (``grouped_matmul`` for G > 1), an attention stage one
-        ``flash_attention``."""
+        plan's batch) once per tile and group, a ``reference`` layer
+        ``sdk_placed`` once per (tile, window shape) (on the card under
+        ``no_grad``), a matmul layer one matmul (``grouped_matmul`` for
+        G > 1), an attention stage one ``flash_attention``."""
         from ..kernels import sdk_conv as sk
-        n = dict.fromkeys(("sdk_whole", "sdk_window", "tetris_matmul",
-                           "grouped_matmul", "flash_attention"), 0)
+        n = dict.fromkeys(("sdk_whole", "sdk_window", "sdk_placed",
+                           "tetris_matmul", "grouped_matmul",
+                           "flash_attention"), 0)
         for lp in self.layers:
             m = lp.mapping
             if lp.executor == "sdk":
@@ -150,6 +152,8 @@ class NetworkPlan:
                                             sk.tile_geom(m, t), m.layer,
                                             lp.vmem_budget)
                     n["sdk_" + mode] += m.group
+            elif lp.executor == "reference":
+                n["sdk_placed"] += len(sk.placed_layer(m).launches)
             elif lp.executor == "matmul":
                 n["grouped_matmul" if m.group > 1 else "tetris_matmul"] += 1
             if lp.glue.post == "attention":

@@ -41,8 +41,9 @@ from torch.utils.checkpoint import checkpoint
 from .. import tracing
 from ..cnn.cim_conv import cim_conv2d, reference_conv2d
 from ..cnn.mapped_net import mapped_conv2d
+from ..kernels._build import needs_backward
 from ..kernels.matmul_exec import matmul_layer, matmul_layer_ref
-from ..kernels.sdk_conv import sdk_conv
+from ..kernels.sdk_conv import sdk_conv, sdk_placed
 from .glue import (ACTIVATIONS, attention_stage, center_crop, fit_spatial,
                    layernorm)
 from ..launch.mesh import check_mesh
@@ -55,7 +56,11 @@ def _layer_conv(lp: LayerPlan, x: torch.Tensor, kernel: torch.Tensor,
                 weights=None, *, mesh=None) -> torch.Tensor:
     """Dispatch one layer to its planned executor.  ``weights`` is the
     layer's entry of `PlanConstants.weights` (None: none prepared);
-    ``mesh`` reaches the mapped executor where the plan said so."""
+    ``mesh`` reaches the mapped executor where the plan said so.  The
+    ``reference`` executor runs its window list on the card's
+    `sdk_placed` kernel when x is on CUDA and autograd would not
+    differentiate the call, else `cim_conv2d`: on the CPU, and in
+    training, where the card counts it in ``sdk_placed.fallbacks``."""
     m = lp.mapping
     if lp.executor == "mapped":
         return mapped_conv2d(m, x, kernel, weights=weights,
@@ -65,6 +70,10 @@ def _layer_conv(lp: LayerPlan, x: torch.Tensor, kernel: torch.Tensor,
                         vmem_budget=lp.vmem_budget)
     if lp.executor == "matmul":
         return matmul_layer(m, x, kernel)
+    if x.device.type == "cuda":
+        if not needs_backward(x, kernel):
+            return sdk_placed(m, x, kernel)
+        sdk_placed.fallbacks += 1
     return cim_conv2d(m, x, kernel)
 
 

@@ -150,14 +150,21 @@ def operand_dtype(**operands: torch.Tensor) -> torch.dtype:
     return dtype
 
 
+def needs_backward(*operands: torch.Tensor) -> bool:
+    """True when autograd would have to differentiate a call on
+    ``operands``: grad mode on and an operand that requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in operands)
+
+
 def no_backward(name: str, *operands: torch.Tensor) -> None:
-    """Refuse a kernel call that autograd would have to differentiate:
-    grad mode on and an operand that requires grad.  No kernel has a
-    backward, here or in the reference (a Pallas kernel there), and a
-    launch returns a tensor with no ``grad_fn``, so a backward would
-    leave the operands without gradients.  The check is the same on
-    both devices; the plain versions stay differentiable."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+    """Refuse a kernel call that autograd would have to differentiate
+    (:func:`needs_backward`).  No kernel has a backward, here or in the
+    reference (a Pallas kernel there), and a launch returns a tensor with
+    no ``grad_fn``, so a backward would leave the operands without
+    gradients.  The check is the same on both devices; the plain
+    versions stay differentiable."""
+    if needs_backward(*operands):
         raise RuntimeError(
             f"{name} has no backward (nor has its kernel in the reference):"
             f" call it under torch.no_grad(), or differentiate through the "

@@ -29,6 +29,14 @@ kernel below batch 128; from 128, Incep-3b does.
 :func:`sdk_conv_plain` repeats the same per-(group, tile, window)
 arithmetic in PyTorch.  :func:`sdk_conv` takes it only for tensors on
 the CPU; for CUDA tensors it launches the kernels or raises.
+
+:func:`sdk_placed` runs the same block body on a mapping's own window
+list (``cnn/cim_conv.py::placement_groups``: the regular windows, then
+Alg 4's marginal strips), which the raster cannot express: one launch
+per (tile, window shape), all groups in its grid, origins read from a
+device table built once (:func:`placed_layer`, ``_placed_args``).
+It is the ``reference`` executor's path on the card under
+``no_grad``; ``cim_conv2d`` is its plain version.
 """
 from __future__ import annotations
 
@@ -39,9 +47,11 @@ import os
 from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..cnn.cim_conv import placement_groups
 from ..core.types import LayerMapping
 from ._build import launch, no_backward, ptr
 from .window_product import SMEM_LIMIT, k_groups, round4, smem_bytes
@@ -251,6 +261,9 @@ def _library() -> ctypes.CDLL:
     lib.sdk_conv_whole.restype = ctypes.c_int
     lib.sdk_conv_window.argtypes = ptrs + [ctypes.c_void_p]
     lib.sdk_conv_window.restype = ctypes.c_int
+    lib.sdk_conv_placed.argtypes = ptrs + [ctypes.c_void_p] + \
+        [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.sdk_conv_placed.restype = ctypes.c_int
     return lib
 
 
@@ -272,11 +285,13 @@ def _check_operands(xt: torch.Tensor, kt: torch.Tensor, g: TileGeom
                          f"do not match the tile's passes")
 
 
-def _c_geom(xt: torch.Tensor, kt: torch.Tensor, g: TileGeom,
-            d: "WindowLaunch") -> SdkGeom:
-    b, ic_pad, i_h, i_w = xt.shape
+def _c_geom(x_shape, oc_pad: int, g: TileGeom, d: "WindowLaunch"
+            ) -> SdkGeom:
+    """The C geometry of a launch on x of ``x_shape`` (b, ic_pad, i_h,
+    i_w) into ``oc_pad`` output channels, laid out as ``d``."""
+    b, ic_pad, i_h, i_w = x_shape
     return SdkGeom(b=b, ic_pad=ic_pad, i_h=i_h, i_w=i_w,
-                   oc_pad=kt.shape[3], o_h=g.o_h, o_w=g.o_w, ar_c=g.ar_c,
+                   oc_pad=oc_pad, o_h=g.o_h, o_w=g.o_w, ar_c=g.ar_c,
                    ac_c=g.ac_c, ic_t=g.ic_t, oc_t=g.oc_t, k_h=g.k_h,
                    k_w=g.k_w, s=g.s, pw_h=g.pw_h, pw_w=g.pw_w, py=g.py,
                    px=g.px, step_y=g.step_y, step_x=g.step_x, nx=g.nx,
@@ -286,7 +301,8 @@ def _c_geom(xt: torch.Tensor, kt: torch.Tensor, g: TileGeom,
 
 class WindowLaunch(NamedTuple):
     """How :func:`sdk_whole` or :func:`sdk_window` lays out one
-    (group, tile) launch."""
+    (group, tile) launch, and :func:`sdk_placed` one (tile, window
+    shape)."""
 
     b_chunk: int   # images per block
     run: int       # consecutive windows per block (> 1: double buffer)
@@ -374,7 +390,8 @@ def sdk_whole(xt: torch.Tensor, kt: torch.Tensor, g: TileGeom
     blocks = ctypes.c_int(0)
     launch(_library().sdk_conv_whole, xt.device, ptr(xt, "xt"),
            ptr(kt, "kt"), ptr(out, "out"),
-           ctypes.byref(_c_geom(xt, kt, g, whole_launch_dims(b, g))),
+           ctypes.byref(_c_geom(xt.shape, kt.shape[3], g,
+                                 whole_launch_dims(b, g))),
            ctypes.byref(blocks))
     sdk_whole.launches += 1
     sdk_whole.steps += g.steps
@@ -394,23 +411,150 @@ def sdk_window(xt: torch.Tensor, kt: torch.Tensor, g: TileGeom
     out = _output(g, b, kt.shape[3], xt.device)
     launch(_library().sdk_conv_window, xt.device, ptr(xt, "xt"),
            ptr(kt, "kt"), ptr(out, "out"),
-           ctypes.byref(_c_geom(xt, kt, g, window_launch_dims(b, g))))
+           ctypes.byref(_c_geom(xt.shape, kt.shape[3], g,
+                                 window_launch_dims(b, g))))
     sdk_window.launches += 1
     sdk_window.steps += g.steps
     return out
 
 
-sdk_whole.launches = sdk_window.launches = 0
-sdk_whole.steps = sdk_window.steps = 0
-sdk_whole.blocks = 0
+# ---------------------------------------------------------------------------
+# The placed kernel: a mapping's window list
+# ---------------------------------------------------------------------------
+
+class PlacedLaunch(NamedTuple):
+    """One launch of :func:`sdk_placed`: a (tile, window shape) of
+    ``placement_groups``.  ``geom`` is the shape's windows as one row of
+    ``nw`` whose origins ``origins`` gives (its raster fields are 0, and
+    the placed kernel reads none of them); its oc passes are the layer's
+    G groups (``ac_c`` = G of ``oc_t`` = oc / G columns) and its channel
+    passes one contraction of the tile's kept channels (``ar_c`` = 1,
+    ``ic_t`` = the tile's depth), summed inside a block."""
+
+    tile: int              # index in mapping.tiles: the output slot
+    c_base: int            # the tile's first channel within a group
+    geom: TileGeom
+    origins: np.ndarray    # (nw, 2) int32 (y, x), placement order
+
+
+class PlacedLayer(NamedTuple):
+    """The launches of :func:`sdk_placed` on one mapping, in the order
+    they run, with the window loads they stand for and whether they
+    write every output position."""
+
+    launches: Tuple[PlacedLaunch, ...]
+    steps: int             # the mapping's window loads: ar_c*ac_c*nw*G
+    covers_output: bool    # each tile's windows write all of (o_h, o_w)
+
+
+@functools.lru_cache(maxsize=None)
+def placed_layer(mapping: LayerMapping) -> PlacedLayer:
+    """Tile by tile, one launch per window shape in ``placement_groups``
+    order (the order ``kept_writes`` keeps the last writer of); a tile's
+    pruned trailing channels are skipped.  The coverage is read from the
+    placements, so an output that some tile leaves unwritten is
+    zero-filled."""
+    layer = mapping.layer
+    s = layer.stride
+    launches, steps, covered, c_base = [], 0, True, 0
+    for ti, tile in enumerate(mapping.tiles):
+        _, ar_c, _, ac_c = mapping.tile_passes(tile)
+        seen = np.zeros((layer.o_h, layer.o_w), bool)
+        for (ph, pw), origins in placement_groups(layer, tile).items():
+            g = TileGeom(s=s, k_h=layer.k_h, k_w=layer.k_w, pw_h=ph,
+                         pw_w=pw, py=(ph - layer.k_h) // s + 1,
+                         px=(pw - layer.k_w) // s + 1, step_y=0, step_x=0,
+                         ny=1, nx=len(origins), lim_y=0, lim_x=0,
+                         ic_t=tile.depth, ar_c=1,
+                         oc_t=layer.oc // mapping.group, ac_c=mapping.group,
+                         o_h=layer.o_h, o_w=layer.o_w)
+            launches.append(PlacedLaunch(ti, c_base, g, origins))
+            steps += ar_c * ac_c * g.nw * mapping.group
+            for y, x in origins:
+                seen[y // s:y // s + g.py, x // s:x // s + g.px] = True
+        covered = covered and bool(seen.all())
+        c_base += tile.depth + tile.pruned_channels
+    return PlacedLayer(tuple(launches), steps, covered)
+
+
+@functools.lru_cache(maxsize=None)
+def _placed_args(mapping: LayerMapping, b: int, device: torch.device
+                 ) -> Tuple[Tuple[PlacedLaunch, SdkGeom, torch.Tensor], ...]:
+    """Per launch of :func:`placed_layer`: its C geometry at batch ``b``
+    (laid out by :func:`window_launch_dims`) and its origin table on
+    ``device``, built once, so a warm call does no layout search and no
+    host-to-device copy."""
+    layer = mapping.layer
+    shape = (b, layer.ic, layer.i_h, layer.i_w)
+    return tuple(
+        (ln, _c_geom(shape, layer.oc, ln.geom,
+                     window_launch_dims(b, ln.geom)),
+         torch.as_tensor(ln.origins, dtype=torch.int32, device=device))
+        for ln in placed_layer(mapping).launches)
+
+
+def sdk_placed(mapping: LayerMapping, x: torch.Tensor,
+               kernel: torch.Tensor) -> torch.Tensor:
+    """Convolve per the mapping's window list on the card.
+
+    x (b, ic, i_h, i_w) pre-padded and kernel (k_h, k_w, ic // G, oc),
+    CUDA tensors, summed in f32; returns (b, oc, o_h, o_w) in their
+    result type, equal to ``cim_conv2d`` up to summation order.  One
+    launch of ``sdk_placed_kernel`` per :func:`placed_layer` launch: a
+    layer of one tile stores straight into its output, a layer of
+    several into one slot a tile, summed after.  Counts
+    ``sdk_placed.launches`` and, in ``sdk_placed.steps``, the mapping's
+    window loads they ran (``mapping.cycles`` where the mapping owes no
+    macro parallelism; a tile's channel passes are one contraction on
+    the card).  ``sdk_placed.fallbacks`` counts the ``reference`` layers
+    the card ran through ``cim_conv2d`` instead, because autograd would
+    differentiate them (``exec/run.py::_layer_conv``).  No backward
+    (:func:`_build.no_backward`)."""
+    no_backward("sdk_placed", x, kernel)
+    layer = mapping.layer
+    ic_g = layer.ic // mapping.group
+    if tuple(kernel.shape) != (layer.k_h, layer.k_w, ic_g, layer.oc):
+        raise ValueError(f"kernel shape {tuple(kernel.shape)} != grouped "
+                         f"layout {(layer.k_h, layer.k_w, ic_g, layer.oc)}")
+    if tuple(x.shape[1:]) != (layer.ic, layer.i_h, layer.i_w):
+        raise ValueError(f"input shape {tuple(x.shape)} != "
+                         f"(b, {layer.ic}, {layer.i_h}, {layer.i_w})")
+    for name, t in (("x", x), ("kernel", kernel)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} is on {t.device}, the kernel needs "
+                             f"a CUDA tensor")
+    if x.device != kernel.device:
+        raise ValueError(f"x on {x.device}, kernel on {kernel.device}")
+    dtype = torch.result_type(x, kernel)
+    x = x.float().contiguous()
+    kernel = kernel.float().contiguous()
+    b = x.shape[0]
+    n_tiles = len(mapping.tiles)
+    placed = placed_layer(mapping)
+    alloc = torch.empty if placed.covers_output else torch.zeros
+    out = alloc((n_tiles, b, layer.oc, layer.o_h, layer.o_w),
+                dtype=torch.float32, device=x.device)
+    fn = _library().sdk_conv_placed
+    for ln, geom, origins in _placed_args(mapping, b, x.device):
+        launch(fn, x.device, ptr(x, "x"), ptr(kernel, "kernel"),
+               ptr(out[ln.tile], "out"), ctypes.byref(geom),
+               ptr(origins, "origins"), ic_g, ln.c_base)
+    sdk_placed.launches += len(placed.launches)
+    sdk_placed.steps += placed.steps
+    return (out[0] if n_tiles == 1 else out.sum(dim=0)).to(dtype)
+
+
+sdk_whole.launches = sdk_window.launches = sdk_placed.launches = 0
+sdk_whole.steps = sdk_window.steps = sdk_placed.steps = 0
+sdk_whole.blocks = sdk_placed.fallbacks = 0
 
 
 def reset_counts() -> None:
-    """Zero both kernels' launch and step counts and the whole kernel's
-    block count."""
-    for fn in (sdk_whole, sdk_window):
+    """Zero the three kernels' launch and step counts, the whole
+    kernel's block count and the placed kernel's fall-backs."""
+    for fn in (sdk_whole, sdk_window, sdk_placed):
         fn.launches = fn.steps = 0
-    sdk_whole.blocks = 0
+    sdk_whole.blocks = sdk_placed.fallbacks = 0
 
 
 def _tile_cuda(xt: torch.Tensor, kt: torch.Tensor, g: TileGeom,

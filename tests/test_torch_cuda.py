@@ -124,6 +124,143 @@ def test_sdk_window_runs_and_stride(cuda, name, batch, run, stride):
     assert float((y - want).abs().max()) <= RTOL * float(want.abs().max())
 
 
+def _reference_layers(net_name):
+    """The layers the card's ``auto`` policy runs on ``reference`` in a
+    TetrisG-SDK 512x512 mapping (groups 1, 2, 4): 1 in cnn8, 2 in
+    inception, 18 in densenet40."""
+    from repro_torch.core import ArrayConfig
+    from repro_torch.exec.plan import _auto_executor
+    from repro_torch.launch.serve_cnn import map_for_serving
+    net = map_for_serving(net_name, ArrayConfig(512, 512), "TetrisG-SDK")[0]
+    return [m for m in net.layers
+            if _auto_executor(m, backend="cuda") == "reference"]
+
+
+def _zero_pruned(m, k):
+    """The kernel with each tile's pruned trailing channels zeroed, as
+    the executors skip them (the F.conv2d oracle reads every channel)."""
+    k = k.clone()
+    c_base = 0
+    for t in m.tiles:
+        k[:, :, c_base + t.depth:c_base + t.depth + t.pruned_channels] = 0
+        c_base += t.depth + t.pruned_channels
+    return k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 8, 256])
+@pytest.mark.parametrize("net_name", ["cnn8", "inception", "densenet40"])
+def test_sdk_placed_matches_cim_conv2d(cuda, net_name, batch):
+    """The placed kernel on every reference layer of the three nets
+    against cim_conv2d and F.conv2d (TF32 off) within the sdk kernels'
+    tolerance; one launch per (tile, window shape), steps == cycles."""
+    from repro_torch.cnn.cim_conv import cim_conv2d
+    from repro_torch.kernels import sdk_conv as sk
+    layers = _reference_layers(net_name)
+    assert len(layers) == {"cnn8": 1, "inception": 2,
+                           "densenet40": 18}[net_name]
+    rng = np.random.RandomState(batch)
+    for m in layers:
+        lay = m.layer
+        x = _rand(cuda, batch, lay.ic, lay.i_h, lay.i_w,
+                  seed=rng.randint(1 << 30))
+        k = _zero_pruned(m, _rand(cuda, lay.k_h, lay.k_w, lay.ic // m.group,
+                                  lay.oc, seed=rng.randint(1 << 30)))
+        sk.reset_counts()
+        y = sk.sdk_placed(m, x, k)
+        torch.cuda.synchronize()
+        assert sk.sdk_placed.launches == len(sk.placed_layer(m).launches)
+        assert sk.sdk_placed.steps == m.cycles
+        assert sk.sdk_window.launches == sk.sdk_whole.launches == 0
+        for want in (cim_conv2d(m, x, k), torch.nn.functional.conv2d(
+                x, k.permute(3, 2, 0, 1), stride=lay.stride,
+                groups=m.group)):
+            assert y.shape == want.shape
+            scale = float(want.abs().max())
+            assert float((y - want).abs().max()) <= RTOL * scale, lay.name
+        # summed in f32, returned in the operands' type as cim_conv2d does
+        assert sk.sdk_placed(m, x.bfloat16(), k.bfloat16()).dtype == \
+            cim_conv2d(m, x.bfloat16(), k.bfloat16()).dtype == torch.bfloat16
+
+
+@pytest.mark.cuda
+def test_reference_executor_under_autograd_runs_cim_conv2d(cuda):
+    """The reference branch launches the placed kernel only where
+    autograd would not differentiate the call: with a kernel that
+    requires grad and grad mode on it runs cim_conv2d (no launch, the
+    gradient reaches the kernel); under no_grad it launches, with the
+    same forward within the kernels' tolerance.  The fall-back is
+    counted once per reference layer and forward."""
+    from repro_torch.exec import compile_plan, execute_plan
+    from repro_torch.kernels import sdk_conv as sk
+    from repro_torch.launch import serve_cnn
+    net = _cnn8_512()
+    plan = compile_plan(net, executor_policy="reference", batch=4,
+                        device=cuda)
+    ks, xh = serve_cnn.serving_inputs(net, 4, 0, cuda)
+    x = torch.as_tensor(xh, device=cuda)
+    ks = [k.clone().requires_grad_(True) for k in ks]
+    sk.reset_counts()
+    y = execute_plan(plan, ks, x)
+    y.square().sum().backward()
+    torch.cuda.synchronize()
+    assert sk.sdk_placed.launches == 0
+    assert sk.sdk_placed.fallbacks == len(plan.layers) == 6
+    assert all(k.grad is not None for k in ks)
+    with torch.no_grad():
+        y2 = execute_plan(plan, ks, x)
+    torch.cuda.synchronize()
+    assert sk.sdk_placed.launches == plan.launches_per_forward()[
+        "sdk_placed"] > 0
+    assert sk.sdk_placed.fallbacks == 6
+    y = y.detach()
+    assert float((y2 - y).abs().max()) <= 1e-4 * float(y.abs().max())
+
+
+@pytest.mark.cuda
+def test_cnn8_b8192_warm_forward_makes_no_sync(cuda):
+    """A warm cnn8 forward at batch 8192 (the benchmark's cell) runs
+    under ``set_sync_debug_mode("error")``: no op synchronises the
+    stream, CNN8-2's index uploads included.  CNN8-2 makes 3
+    ``sdk_placed`` launches of 24 steps (its cycles) and runs no other
+    device op (no GEMM, gather, scatter or host-to-device copy);
+    CNN8-3..7 make 15 ``sdk_window`` launches."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.exec import compile_plan, execute_plan
+    from repro_torch.kernels import sdk_conv as sk
+    net = _cnn8_512()
+    b = 8192
+    plan = compile_plan(net, executor_policy="auto", batch=b, device=cuda)
+    assert plan.executors == ("reference",) + ("sdk",) * 5
+    rng = np.random.RandomState(0)
+    ks = [_rand(cuda, m.layer.k_h, m.layer.k_w, m.layer.ic // m.group,
+                m.layer.oc, seed=rng.randint(1 << 30)) * 0.1
+          for m in net.layers]
+    lay0 = net.layers[0].layer
+    x = _rand(cuda, b, lay0.ic, lay0.i_h, lay0.i_w, seed=1)
+    with torch.no_grad():
+        execute_plan(plan, ks, x)                 # warm: builds, tables
+        torch.cuda.synchronize()
+        sk.reset_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            execute_plan(plan, ks, x)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        assert (sk.sdk_placed.launches, sk.sdk_placed.steps) == (
+            3, net.layers[0].cycles) == (3, 24)
+        assert sk.sdk_window.launches == 15
+        m = net.layers[0]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            sk.sdk_placed(m, x, ks[0])
+            torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 3 and all("sdk_placed_kernel" in n
+                                   for n in names), names
+
+
 def _rand(cuda, *shape, seed=0):
     rng = np.random.RandomState(seed)
     return torch.as_tensor(rng.randn(*shape).astype(np.float32), device=cuda)
@@ -606,7 +743,8 @@ def test_kernel_entry_points_refuse_autograd(cuda):
 @pytest.mark.cuda
 def test_train_plan_card_matches_cpu(cuda):
     """cnn8's plan trainer on the card and on the CPU from the same
-    draws: per-step losses within 1e-3 relative, no kernel launched."""
+    draws: per-step losses within 1e-3 relative, no kernel launched;
+    the card's reference layers are counted as run through cim_conv2d."""
     from repro_torch.cnn.train import train_plan
     from repro_torch.kernels import sdk_conv as sk
     from repro_torch.launch.train import plan_net_mapping
@@ -618,6 +756,7 @@ def test_train_plan_card_matches_cpu(cuda):
         train_plan(net, steps=3, batch=8, accum=2, remat="auto",
                    losses=losses[dev], device=dev)
     assert sk.sdk_whole.launches == sk.sdk_window.launches == 0
+    assert sk.sdk_placed.launches == 0 < sk.sdk_placed.fallbacks
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3)
 
 
@@ -640,6 +779,7 @@ def _served_launches():
     from repro_torch.kernels import tetris_matmul as tm
     return {"sdk_whole": sk.sdk_whole.launches,
             "sdk_window": sk.sdk_window.launches,
+            "sdk_placed": sk.sdk_placed.launches,
             "tetris_matmul": tm.tetris_matmul_cuda.launches,
             "grouped_matmul": gm.grouped_matmul_cuda.launches,
             "flash_attention": fa.flash_attention_cuda.launches}

@@ -292,8 +292,9 @@ def test_plan_predicts_its_launches(block):
                      "Tetris-SDK", tc.MacroGrid(1, 1))
     plan = compile_plan(net, executor_policy="sdk", batch=2, device="cpu",
                         block=block)
-    want = dict.fromkeys(("sdk_whole", "sdk_window", "tetris_matmul",
-                          "grouped_matmul", "flash_attention"), 0)
+    want = dict.fromkeys(("sdk_whole", "sdk_window", "sdk_placed",
+                          "tetris_matmul", "grouped_matmul",
+                          "flash_attention"), 0)
     want["sdk_" + block] = sum(len(m.tiles) * m.group for m in net.layers)
     assert want["sdk_" + block] >= 3
     assert plan.launches_per_forward() == want
