@@ -261,6 +261,49 @@ def test_cnn8_b8192_warm_forward_makes_no_sync(cuda):
                                    for n in names), names
 
 
+@pytest.mark.cuda
+def test_densenet40_b512_forward_matches_oracle(cuda):
+    """DenseNet-40 as the benchmark maps it (TetrisG-SDK, 512x512, groups
+    1, 2, 4) under ``auto`` at batch 512: 18 reference layers on
+    ``sdk_placed`` (two-tile and pruned pins among them) and 20 sdk
+    layers, with the concat carry between them.  Two forwards against
+    ``execute_oracle`` (F.conv2d, TF32 off) within the benchmark's 2e-5;
+    every launch is the plan's, and no reference layer falls back to
+    ``cim_conv2d``."""
+    import math
+    from repro_torch.cnn.mapped_net import zero_pruned_kernels
+    from repro_torch.core import ArrayConfig, map_net, networks
+    from repro_torch.exec import compile_plan, execute_oracle, execute_plan
+    from repro_torch.kernels import sdk_conv as sk
+    net = map_net("densenet40", networks.densenet40(), ArrayConfig(512, 512),
+                  "TetrisG-SDK", groups=(1, 2, 4))
+    b = 512
+    plan = compile_plan(net, executor_policy="auto", batch=b, device=cuda)
+    assert plan.executors.count("reference") == 18
+    assert plan.executors.count("sdk") == 20
+    rng = np.random.RandomState(40)
+    ks = zero_pruned_kernels(net, [
+        _rand(cuda, m.layer.k_h, m.layer.k_w, m.layer.ic // m.group,
+              m.layer.oc, seed=rng.randint(1 << 30))
+        / math.sqrt(m.layer.k_h * m.layer.k_w * m.layer.ic // m.group)
+        for m in net.layers])
+    x = _rand(cuda, b, 16, 32, 32, seed=rng.randint(1 << 30))
+    sk.reset_counts()
+    with torch.no_grad():
+        ys = [execute_plan(plan, ks, x, activation=torch.relu)
+              for _ in range(2)]
+    torch.cuda.synchronize()
+    per_forward = plan.launches_per_forward()
+    assert per_forward["sdk_placed"] > 0
+    for kernel in ("sdk_placed", "sdk_window", "sdk_whole"):
+        assert getattr(sk, kernel).launches == 2 * per_forward[kernel]
+    assert sk.sdk_placed.fallbacks == 0
+    want = execute_oracle(plan, ks, x, activation=torch.relu)
+    assert want.shape == (b, 12, 8, 8)
+    for y in ys:
+        _close(y, want, 2e-5)
+
+
 def _rand(cuda, *shape, seed=0):
     rng = np.random.RandomState(seed)
     return torch.as_tensor(rng.randn(*shape).astype(np.float32), device=cuda)
